@@ -7,7 +7,7 @@ package's evaluate_depth.py.
         --data_path kitti_data --load_weights_folder <weights folder>
 """
 
-from fusiondepth_tpu.config import parse_args
+from fusiondepth_torch.config import parse_args
 
 
 def main(argv=None):

@@ -9,7 +9,7 @@ package's inf_depth_map.py.
 
 import os
 
-from fusiondepth_tpu.config import parse_args
+from fusiondepth_torch.config import parse_args
 
 SPLIT_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "splits")
@@ -17,8 +17,8 @@ SPLIT_DIR = os.path.join(os.path.dirname(os.path.dirname(
 
 def main(argv=None):
     cfg = parse_args(argv)
-    from fusiondepth_tpu.data.kitti_dataset import KITTIRAWDataset
-    from fusiondepth_tpu.data.kitti_io import readlines
+    from fusiondepth_torch.data.kitti_dataset import KITTIRAWDataset
+    from fusiondepth_torch.data.kitti_io import readlines
     from fusiondepth_torch.training.infer_driver import Infer
 
     ext = ".png" if cfg.png else ".jpg"

@@ -6,6 +6,11 @@ there) and launches its kernel for a CUDA tensor, or raises; it never falls
 back from the kernel to the plain version. A wrapper adds one to its entry
 in `LAUNCHES` each time it launches its kernel, so a run can show that it
 went through the kernels (see `chip_smoke.py`).
+
+A kernel that needs a gradient is a `torch.autograd.Function` whose forward
+and backward call such wrappers, so the backward pass launches kernels
+too, each counted under its own name (`maxpool3x3s2_bwd`, `warp_bwd`,
+`conv3x3_dgrad`, `conv3x3_wgrad`).
 """
 
 from __future__ import annotations
@@ -14,7 +19,9 @@ import contextlib
 
 import torch
 
-LAUNCHES = {"maxpool3x3s2": 0, "conv3x3_reflect": 0, "conv3x3_zero_act": 0}
+LAUNCHES = {"maxpool3x3s2": 0, "maxpool3x3s2_bwd": 0, "conv3x3_reflect": 0,
+            "conv3x3_zero_act": 0, "conv3x3_dgrad": 0, "conv3x3_wgrad": 0,
+            "warp": 0, "warp_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -32,16 +39,11 @@ def on_card(x: torch.Tensor):
 
 def check_cuda_f32(name: str, **tensors) -> None:
     """Raise unless every given tensor is a contiguous float32 CUDA tensor
-    on one device (None entries are skipped). The kernels are forward-only:
-    a tensor that would need a gradient is refused too."""
+    on one device (None entries are skipped)."""
     devices = set()
     for arg, t in tensors.items():
         if t is None:
             continue
-        if t.requires_grad and torch.is_grad_enabled():
-            raise RuntimeError(
-                f"{name}: the kernel has no backward yet; call it under "
-                "torch.no_grad() or torch.inference_mode()")
         if t.device.type != "cuda":
             raise ValueError(f"{name}: {arg} is on {t.device}, expected cuda")
         if t.dtype != torch.float32:

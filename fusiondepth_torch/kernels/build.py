@@ -43,6 +43,19 @@ SIGNATURES = {
                                _I, _P),
     # x, C, w, scale, shift, y, B, H, W, Co, stream
     "fd_conv3x3_zero_act_fwd": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # g, Co, wt, dxp, dx0, C0, dx1, C1, B, H, W, reflect, stream
+    "fd_conv3x3_dgrad": (_P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P),
+    # B, H, W, Co, Ci
+    "fd_conv3x3_wgrad_splits": (_I, _I, _I, _I, _I),
+    # g, Co, x0, C0, x1, C1, scale, shift, part, dw, B, H, W, reflect, stream
+    "fd_conv3x3_wgrad": (_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I,
+                         _I, _P),
+    # x, y, g, dx, B, C, H, W, stream
+    "fd_maxpool3x3s2_bwd": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # ix, iy, src, out, N, K, B, C, H, W, stream
+    "fd_warp_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # ix, iy, src, g, gix, giy, N, K, B, C, H, W, stream
+    "fd_warp_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -10,6 +10,7 @@ instead (`models/jax_weights.py`).
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -17,11 +18,17 @@ from torch import nn
 
 # the standard deviation of a unit normal truncated at +-2
 _TRUNC2_STD = 0.87962566103423978
+# erf(+-2 / sqrt(2)): the unit normal's CDF at +-2, mapped to (-1, 1)
+_ERF2 = math.erf(2.0 / math.sqrt(2.0))
 
 
 def lecun_normal_(module: nn.Module,
                   generator: Optional[torch.Generator] = None) -> None:
-    """Re-initialise every nn.Conv2d under `module` in place."""
+    """Re-initialise every nn.Conv2d under `module` in place. The
+    truncated normal is drawn by inverting the normal CDF of a uniform
+    sample (sqrt(2) * erfinv(u), u uniform on (-erf(sqrt 2), erf(sqrt
+    2))): three passes over the weight, where nn.init.trunc_normal_ with a
+    generator takes seconds for the four ResNet encoders."""
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     with torch.no_grad():
@@ -30,7 +37,8 @@ def lecun_normal_(module: nn.Module,
                 w = m.weight
                 fan_in = w.shape[1] * w.shape[2] * w.shape[3]
                 std = fan_in ** -0.5 / _TRUNC2_STD
-                nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
-                                      generator=generator)
+                w.uniform_(-_ERF2, _ERF2, generator=generator)
+                w.erfinv_().mul_(std * math.sqrt(2.0))
+                w.clamp_(-2 * std, 2 * std)
                 if m.bias is not None:
                     m.bias.zero_()

@@ -1,10 +1,11 @@
 """Carry weights between the JAX package's variable trees and the port's
-state dicts, both ways, for the depth branch.
+state dicts, both ways, for the depth and pose networks.
 
 A JAX FusionNets tree is `{net: {"params": ..., "batch_stats": ...}}`,
 nested dicts of arrays; this module needs only numpy. The nets covered are
-`encoder`, `beam_encoder`, `depth` and `predictive_mask`; other subtrees
-(the pose nets) are skipped. The trees the JAX package builds with its
+`encoder`, `beam_encoder`, `depth`, `predictive_mask`, `pose_encoder`,
+`beam_encoder_pose` and `pose` (the PoseDecoder); other subtrees are
+skipped. The trees the JAX package builds with its
 default TPU layout flags have the generic layout's names and shapes, so
 they carry over unchanged.
 
@@ -14,7 +15,8 @@ Mapping, JAX -> port:
   batch_stats mean / var     -> running_mean / running_var
   encoder layer{s}_{b}       -> layer{s}.{b}
   downsample_conv / _bn      -> downsample.0 / downsample.1
-Decoder module names (`upconv_4_0/conv`, `dispconv_0/conv`) are the same.
+Decoder module names (`upconv_4_0/conv`, `dispconv_0/conv`) and pose
+decoder ones (`squeeze`, `pose_0`..`pose_2`) are the same.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-NETS = ("encoder", "beam_encoder", "depth", "predictive_mask")
+NETS = ("encoder", "beam_encoder", "depth", "predictive_mask",
+        "pose_encoder", "beam_encoder_pose", "pose")
 
 _BLOCK = re.compile(r"^layer(\d+)_(\d+)$")
 _MODULE_TO_TORCH = {"downsample_conv": "downsample.0",

@@ -4,7 +4,7 @@ As in `fusiondepth_tpu/models/pretrained.py` (reference
 networks/resnet_encoder.py:33-50): every ResNet encoder starts from a
 torchvision `resnet{depth}*.pth` found locally; conv1 keeps the torch
 weights where the channel counts match (tiled and divided by N for a
-multi-image input) and its own init otherwise. The port's encoders use
+multi-image input: the pose encoders) and its own init otherwise. The port's encoders use
 torchvision's parameter names, so the checkpoint loads straight in. If no
 checkpoint is found the encoder keeps its random init and a warning is
 printed once.
@@ -19,7 +19,7 @@ from typing import Dict, Optional
 
 import torch
 
-from fusiondepth_tpu.config import Config
+from fusiondepth_torch.config import Config
 from fusiondepth_torch.models.resnet import ResnetEncoder
 
 
@@ -67,11 +67,17 @@ def load_pretrained_encoder(encoder: ResnetEncoder, pth_path: str,
 
 
 def apply_pretrained(cfg: Config, nets) -> Dict[str, bool]:
-    """Load ImageNet weights into the depth and beam encoders of a
-    FusionNets bundle; returns {encoder name: whether weights were found}."""
+    """Load ImageNet weights into every ResNet encoder of a FusionNets
+    bundle: the depth and beam encoders, and the pose and beam-pose
+    encoders, whose conv1 takes num_pose_frames images (tiled and divided
+    by N where the channels match, fusiondepth_tpu/models/pretrained.py:
+    75-84). Returns {encoder name: whether weights were found}."""
     applied = {}
-    for name in ("encoder", "beam_encoder"):
-        enc = getattr(nets, name)
+    n_pose = cfg.num_pose_frames
+    for name, n_imgs in (("encoder", 1), ("beam_encoder", 1),
+                         ("pose_encoder", n_pose),
+                         ("beam_encoder_pose", n_pose)):
+        enc = getattr(nets, name, None)
         if enc is None:
             continue
         pth = find_checkpoint(enc.depth, cfg.pretrained_weights_path)
@@ -83,5 +89,5 @@ def apply_pretrained(cfg: Config, nets) -> Dict[str, bool]:
                 f"{cfg.pretrained_weights_path!r} and the torch hub cache); "
                 f"encoders keep their random init", stacklevel=2)
             continue
-        load_pretrained_encoder(enc, pth)
+        load_pretrained_encoder(enc, pth, n_imgs)
     return applied

@@ -1,1 +1,2 @@
-"""Drivers of the port: inference cache, evaluation, checkpoints."""
+"""Drivers of the port: photometric loss, train step, trainer, inference
+cache, evaluation, checkpoints."""

@@ -2,7 +2,7 @@
 branch only. Counterpart of `fusiondepth_tpu/training/eval_driver.py`:
 loads weights, runs the model over the eval split (with the flip
 post-process when asked), applies the protocol of
-`fusiondepth_tpu/training/evaluation.py` (reused as it is) and prints the
+`training/evaluation.py` (a copy of the JAX package's) and prints the
 7-metric row. The stage-2 modes (refine_2d, eval_gdc) and the visualize,
 per_semantic and benchmark-export outputs are not ported yet and raise.
 """
@@ -15,9 +15,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from fusiondepth_tpu.config import Config
-from fusiondepth_tpu.data.loader import DataLoader
-from fusiondepth_tpu.training.evaluation import (
+from fusiondepth_torch.config import Config
+from fusiondepth_torch.data.loader import DataLoader
+from fusiondepth_torch.training.evaluation import (
     METRIC_NAMES,
     STEREO_SCALE_FACTOR,
     evaluate_disparities,
@@ -26,8 +26,8 @@ from fusiondepth_tpu.training.evaluation import (
 from fusiondepth_torch.models.fusion import FusionNets
 from fusiondepth_torch.training.infer_driver import (
     build_nets,
-    default_device,
     device_batch,
+    resolve_device,
 )
 
 
@@ -38,7 +38,7 @@ def predict_disparities(cfg: Config, dataset,
     disps a list of (H, W) arrays. With cfg.post_process each batch runs
     again mirrored and the two are blended (eval_driver.py:61-69)."""
     if nets is None:
-        device = torch.device(device) if device else default_device()
+        device = resolve_device(device)
         if not (cfg.load_weights_folder
                 and os.path.exists(cfg.load_weights_folder)):
             print(f"WARNING: load_weights_folder {cfg.load_weights_folder!r}"
@@ -65,11 +65,11 @@ def predict_disparities(cfg: Config, dataset,
 
 
 def _kitti_eval_dataset(cfg: Config):
-    from fusiondepth_tpu.data.kitti_dataset import (
+    from fusiondepth_torch.data.kitti_dataset import (
         KITTIDepthDataset,
         KITTIRAWDataset,
     )
-    from fusiondepth_tpu.data.kitti_io import readlines
+    from fusiondepth_torch.data.kitti_io import readlines
 
     split_dir = os.path.join(os.path.dirname(__file__), "..", "..", "splits")
     if cfg.demo:

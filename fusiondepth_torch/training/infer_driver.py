@@ -8,13 +8,13 @@ correction and refiner distillation. Counterpart of
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
-from fusiondepth_tpu.config import Config
-from fusiondepth_tpu.data.loader import DataLoader
+from fusiondepth_torch.config import Config
+from fusiondepth_torch.data.loader import DataLoader
 from fusiondepth_torch.models.fusion import FusionNets
 from fusiondepth_torch.models.pretrained import apply_pretrained
 from fusiondepth_torch.training import checkpoint as ckpt
@@ -23,17 +23,29 @@ from fusiondepth_torch.training import checkpoint as ckpt
 DEPTH_KEYS = ("color_aug", "two_channel", "four_beam")
 
 
-def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+def resolve_device(device=None) -> torch.device:
+    """`device` as a torch.device; when it is None, cuda:0, where every
+    entry point runs unless its caller names a device. Raises without a
+    card: the CPU is used only when a caller asks for it (device="cpu"),
+    never as a silent stand-in."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "fusiondepth_torch runs on a CUDA card and none is available; "
+            "pass device='cpu' to run on the CPU")
+    return torch.device("cuda", 0)
 
 
-def device_batch(batch: Dict[str, object],
-                 device: torch.device) -> Dict[str, torch.Tensor]:
-    """The depth branch's inputs of a host batch (numpy) as tensors on
-    `device`: through pinned memory with a non-blocking copy when the
-    device is a card."""
+def device_batch(batch: Dict[str, object], device: torch.device,
+                 keys: Sequence[str] = DEPTH_KEYS,
+                 dtype: Optional[torch.dtype] = None
+                 ) -> Dict[str, torch.Tensor]:
+    """The `keys` of a host batch (numpy) that it holds, as tensors on
+    `device` (floating ones cast to `dtype` when given): through pinned
+    memory with a non-blocking copy when the device is a card."""
     out = {}
-    for k in DEPTH_KEYS:
+    for k in keys:
         if k not in batch:
             continue
         t = torch.from_numpy(np.ascontiguousarray(batch[k]))
@@ -41,6 +53,8 @@ def device_batch(batch: Dict[str, object],
             t = t.pin_memory().to(device, non_blocking=True)
         else:
             t = t.to(device)
+        if dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
         out[k] = t
     return out
 
@@ -62,7 +76,7 @@ class Infer:
                  device: Optional[torch.device] = None,
                  nets: Optional[FusionNets] = None):
         self.cfg = cfg
-        self.device = torch.device(device) if device else default_device()
+        self.device = resolve_device(device)
         self.nets = nets if nets is not None else build_nets(cfg, self.device)
         self.datasets = datasets
 

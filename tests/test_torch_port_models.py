@@ -15,6 +15,7 @@ import jax
 import jax.numpy as jnp
 
 from fusiondepth_tpu.config import Config
+from fusiondepth_torch.config import Config as PortConfig
 from fusiondepth_tpu.models.depth_decoder import DepthDecoder as JaxDecoder
 from fusiondepth_tpu.models.fusion import FusionNets as JaxFusionNets
 from fusiondepth_tpu.models.norm import BatchNorm as JaxBatchNorm
@@ -31,6 +32,18 @@ from fusiondepth_torch.models.resnet import RESNET_FEATURE_CHANNELS, \
 
 B, H, W = 2, 64, 96
 TOL = dict(atol=5e-4, rtol=1e-3)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def few_torch_threads():
+    """Two intra-op torch threads for a port test module (the others
+    import this fixture): the suite runs in several processes at once, and
+    torch's default of one thread per core oversubscribes the CPU, which
+    makes a train step ten times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 def random_variables(init, rng, dtype=np.float32):
@@ -142,10 +155,11 @@ def test_batchnorm_matches_flax(train):
 
 
 def test_pretrained_loads_like_jax_import(tmp_path, monkeypatch):
-    """A torchvision-format resnet18 checkpoint goes into the port's RGB
-    and beam encoders as the JAX package's torch import converts it: every
-    tensor, with the 2-channel beam conv1 keeping its own init. Without a
-    checkpoint both keep their init and a warning says so."""
+    """A torchvision-format resnet18 checkpoint goes into the port's four
+    encoders as the JAX package's torch import converts it: every tensor,
+    the pose encoder's conv1 tiled over its two frames, the beam encoders'
+    conv1 keeping their own init. Without a checkpoint they keep their
+    init and a warning says so."""
     from fusiondepth_tpu.models.torch_import import load_pretrained_encoder
     from fusiondepth_torch.training.infer_driver import build_nets
 
@@ -155,14 +169,20 @@ def test_pretrained_loads_like_jax_import(tmp_path, monkeypatch):
     sd.update({"fc.weight": torch.zeros(10, 512), "fc.bias": torch.zeros(10),
                "bn1.num_batches_tracked": torch.tensor(5)})
     torch.save(sd, tmp_path / "resnet18-test.pth")
-    cfg = Config(num_layers=18, height=64, width=64,
-                 pretrained_weights_path=str(tmp_path))
+    cfg = PortConfig(num_layers=18, height=64, width=64,
+                     pretrained_weights_path=str(tmp_path))
     got = to_jax_variables(build_nets(cfg, torch.device("cpu")).state_dict())
     pth = str(tmp_path / "resnet18-test.pth")
     own = {"params": {"conv1": got["beam_encoder"]["params"]["conv1"]}}
+    own_bp = {"params": {
+        "conv1": got["beam_encoder_pose"]["params"]["conv1"]}}
     want = {"encoder": load_pretrained_encoder(pth, 18, 3),
             "beam_encoder": load_pretrained_encoder(
-                pth, 18, 2, existing_variables=own)}
+                pth, 18, 2, existing_variables=own),
+            # two frames: conv1 tiled over the pair and halved
+            "pose_encoder": load_pretrained_encoder(pth, 18, 6, 2),
+            "beam_encoder_pose": load_pretrained_encoder(
+                pth, 18, 4, 2, existing_variables=own_bp)}
     for net in want:
         assert jax.tree.structure(got[net]) == jax.tree.structure(want[net])
         for a, b in zip(jax.tree.leaves(got[net]),

@@ -1,6 +1,7 @@
-"""The port must run where JAX is not installed: importing it, its drivers,
-its entry points and chip_smoke.py pulls in neither jax nor flax. Checked
-in a fresh interpreter, since this test process has imported JAX already
+"""The port must run where JAX is not installed: importing every module of
+fusiondepth_torch, its CLIs, its trainer and chip_smoke.py loads no module
+of jax, jaxlib, flax or the JAX package (fusiondepth_tpu). Checked in a
+fresh interpreter, since this test process has imported JAX already
 (tests/conftest.py)."""
 
 import os
@@ -10,24 +11,21 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PROBE = """
-import sys
+import importlib, pkgutil, sys
 import fusiondepth_torch
-import fusiondepth_torch.kernels.build
-import fusiondepth_torch.kernels.conv3x3
-import fusiondepth_torch.kernels.pool
-import fusiondepth_torch.models.fusion
-import fusiondepth_torch.models.jax_weights
-import fusiondepth_torch.models.pretrained
-import fusiondepth_torch.training.checkpoint
-import fusiondepth_torch.training.eval_driver
-import fusiondepth_torch.training.infer_driver
+mods = [m.name for m in pkgutil.walk_packages(fusiondepth_torch.__path__,
+                                              "fusiondepth_torch.")]
+for m in mods:
+    importlib.import_module(m)
+import fusiondepth_torch.trainer
 import fusiondepth_torch.inf_depth_map
 import fusiondepth_torch.evaluate_depth
-import fusiondepth_tpu.data.kitti_dataset
+import fusiondepth_torch.training.trainer
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax"))
-print(",".join(bad) or "clean")
+             if m.split(".")[0] in ("jax", "jaxlib", "flax",
+                                    "fusiondepth_tpu"))
+print(len(mods), ",".join(bad) or "clean")
 """
 
 
@@ -36,4 +34,6 @@ def test_port_imports_no_jax():
     r = subprocess.run([sys.executable, "-c", PROBE], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
-    assert r.stdout.strip().splitlines()[-1] == "clean", r.stdout
+    n, verdict = r.stdout.strip().splitlines()[-1].split(" ", 1)
+    assert int(n) >= 30, r.stdout  # every module of the port was imported
+    assert verdict == "clean", r.stdout

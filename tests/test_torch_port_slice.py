@@ -21,10 +21,11 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from fusiondepth_tpu.config import Config
+from fusiondepth_tpu.config import Config as JaxConfig
 from fusiondepth_tpu.data.synthetic import SyntheticDataset, make_batch
 from fusiondepth_tpu.models.fusion import FusionNets as JaxFusionNets
 from fusiondepth_tpu.training.evaluation import flip_postprocess
+from fusiondepth_torch.config import Config
 from fusiondepth_torch.models.fusion import FusionNets
 from fusiondepth_torch.models.jax_weights import NETS, flatten, \
     from_jax_variables
@@ -32,11 +33,15 @@ from fusiondepth_torch.training import checkpoint as ckpt
 from fusiondepth_torch.training.eval_driver import predict_disparities
 from fusiondepth_torch.training.infer_driver import Infer, device_batch
 
+from test_torch_port_models import few_torch_threads  # noqa: F401
 from test_torch_port_models import random_variables
 
 B, H, W = 2, 64, 96
-CFG = Config(num_layers=18, height=H, width=W, compute_dtype="float64",
-             weights_init="scratch", eval_batch_size=B)
+# the JAX Config and the port's from the same keyword arguments
+KW = dict(num_layers=18, height=H, width=W, compute_dtype="float64",
+          weights_init="scratch", eval_batch_size=B)
+CFG = Config(**KW)
+JCFG = JaxConfig(**KW)
 CPU = torch.device("cpu")
 # what the JAX eval driver mirrors for the flip post-process
 # (fusiondepth_tpu/training/eval_driver.py:62-67)
@@ -53,7 +58,7 @@ class FramesDataset:
     split so the inference cache can name its files."""
 
     def __init__(self, n):
-        self.inner = SyntheticDataset(CFG, length=n, seed=3)
+        self.inner = SyntheticDataset(JCFG, length=n, seed=3)
 
     def __len__(self):
         return len(self.inner)
@@ -74,9 +79,9 @@ class FramesDataset:
 def jax_side():
     """JAX variables and every JAX result the tests compare with."""
     frames = FramesDataset(4)
-    batch = _f64(make_batch(CFG, B, seed=0))
+    batch = _f64(make_batch(JCFG, B, seed=0))
     with jax.enable_x64():
-        nets = JaxFusionNets(CFG)
+        nets = JaxFusionNets(JCFG)
         v = random_variables(lambda: nets.init(jax.random.PRNGKey(0)),
                              np.random.default_rng(0), np.float64)
 
@@ -128,11 +133,12 @@ def test_forward_depth_variant_matches_jax():
     to keep to one JAX compile: the LiDAR concatenated to the encoder
     input, no beam encoder, the LiDAR at the last head, and the
     predictive-mask decoder."""
-    cfg = CFG.replace(cat2start=True, cat2end=True, beam_encoder=False,
-                      predictive_mask=True, disable_automasking=True)
-    batch = _f64(make_batch(cfg, B, seed=1))
+    variant = dict(cat2start=True, cat2end=True, beam_encoder=False,
+                   predictive_mask=True, disable_automasking=True)
+    cfg, jcfg = CFG.replace(**variant), JCFG.replace(**variant)
+    batch = _f64(make_batch(jcfg, B, seed=1))
     with jax.enable_x64():
-        jnets = JaxFusionNets(cfg)
+        jnets = JaxFusionNets(jcfg)
         v = random_variables(lambda: jnets.init(jax.random.PRNGKey(0)),
                              np.random.default_rng(1), np.float64)
 
