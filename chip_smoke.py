@@ -17,25 +17,47 @@ order, it:
    each and read after; checks the cached files and disparities, that every
    forward kernel ran, and the forward against the all-plain one;
 5. training (ResNet-18, 640x192, fp32): holds every kernel, forward and
-   backward, against its plain version on the inputs a batch-2 train step
-   records and on the edge cases of `edge_calls` (ties, NaN, odd and ragged
-   sizes, border and far-out warp coordinates, a positive BN shift): the
-   pools exactly, the warp at atol 1e-5, the convs and dgrad at atol and
-   rtol 1e-4, wgrad to 1e-3 of the plain result's largest magnitude; checks
-   a whole batch-2 step through the kernels against all-plain with the
-   same weights and noise: the loss within 1e-5, and every gradient leaf
-   against a float64 all-plain step, within 1e-3 or 3x the fp32 all-plain
-   step's own error (STEP_NOISE_X); then drives
+   backward, against its plain version on the inputs a batch-2 and a
+   batch-12 train step record and on the edge cases of `edge_calls`
+   (ties, NaN, odd and ragged sizes, border and far-out warp coordinates,
+   a positive BN shift; for the fused reprojection loss H no multiple of
+   16, W = 2, H = 2, warped == target): the pools exactly, the warp at
+   atol 1e-5, the convs and dgrad at atol and rtol 1e-4, wgrad to 1e-3 of
+   the plain result's largest magnitude, the reprojection loss map at
+   atol 1e-5 and its warped cotangent at atol and rtol 1e-4; checks a
+   whole batch-2 step through the kernels against all-plain with the same
+   weights and noise: the loss within 1e-5, and every gradient leaf
+   against a float64 all-plain step (`hold_step`); then drives
    Trainer.run_epoch over 36 synthetic frames (3 steps at batch 12) with
    the counts set to 0 before and read after, requires every kernel to
    have run and finite losses, saves a checkpoint and reloads it in Infer;
-6. times each kernel against its plain version (and one PyTorch call that
-   computes the same function, where there is one) over the calls of a
-   batch-12 train step, the step through the kernels against all-plain,
-   and the inference forward, with CUDA events after warm-up, each pair
-   in the order plain, kernel, kernel, plain;
-7. prints the card's name and power limit (nvidia-smi), then one JSON line
-   {"kernels": [...]}, then, last, {"ok": true, "device": {...}}.
+6. offline GDC (path B): writes a synthetic KITTI drive at the native
+   375 x 1242 with numpy only (calib, velodyne and 4-beam bins), caches
+   inf_depth disparities with Infer.run_split, holds the KNN kernel
+   against its plain version on a frame's cloud and on a GDC-sized cloud
+   with duplicates, a grid and sentinels (sorted neighbour distances
+   within 1e-6 relative), requires the kernel and plain KNN to give the
+   frame the same neighbour graph and GDC through either to agree bit for
+   bit, then drives run_inf_gdc over 3 frames at the default capacities
+   (N = 40960);
+7. the refiner (path B, BASELINE config 4: ResNet-18, 640x192, batch 4):
+   holds the kernels on the calls of a batch-4 refine step, a whole
+   batch-2 refine step through the kernels against all-plain (loss within
+   1e-5, each refine2d gradient leaf against a float64 step as in 5),
+   drives
+   Refiner.run_epoch over 12 frames carrying inf_gdc (3 steps at batch 4)
+   requiring every kernel of the step, saves and reloads the refine
+   checkpoint, and runs evaluate with refine_2d and with refine_2d and
+   eval_gdc over the drive's frames;
+8. times each kernel against its plain version (and one PyTorch call that
+   computes the same function, where there is one; for the KNN, chunked
+   cdist + topk, two calls) over the calls of a batch-12 train step (the
+   KNN: one GDC frame), the steps through the kernels against all-plain,
+   and the inference forward, with CUDA events after warm-up, each pair in
+   the order plain, kernel, kernel, plain;
+9. prints the card's name and power limit (nvidia-smi), then one JSON
+   line {"kernels": [...]} of the 11 kernels, each with the launches of
+   the path that drives it, then, last, {"ok": true, "device": {...}}.
 
 Any failed check raises, so the exit code is not 0.
 """
@@ -56,16 +78,26 @@ import torch
 import torch.nn.functional as F
 
 from fusiondepth_torch.config import Config
+from fusiondepth_torch.data.calibration import Calibration
+from fusiondepth_torch.data.fixtures import DRIVE, build_synthetic_kitti_tree
+from fusiondepth_torch.data.kitti_io import generate_depth_map
 from fusiondepth_torch.data.loader import collate
 from fusiondepth_torch.data.synthetic import SyntheticDataset
 from fusiondepth_torch.kernels import LAUNCHES, build, conv3x3, pool, \
     reset_launches
+from fusiondepth_torch.kernels import knn as knn_kernel
+from fusiondepth_torch.kernels import reproj as reproj_kernel
 from fusiondepth_torch.kernels import warp as warp_kernel
+from fusiondepth_torch.models.depth_decoder import ConvBlock
 from fusiondepth_torch.models.fusion import FusionNets
 from fusiondepth_torch.models.norm import BatchNorm
 from fusiondepth_torch.training import checkpoint as ckpt
-from fusiondepth_torch.training.eval_driver import predict_disparities
+from fusiondepth_torch.training.eval_driver import evaluate, \
+    predict_disparities
+from fusiondepth_torch.training.gdc_driver import gdc_one_frame, run_inf_gdc
 from fusiondepth_torch.training.infer_driver import Infer, device_batch
+from fusiondepth_torch.training.refiner import refine_loss
+from fusiondepth_torch.training.refiner_driver import Refiner
 from fusiondepth_torch.training.train_state import loss_fn
 from fusiondepth_torch.training.trainer import TRAIN_KEYS, Trainer
 
@@ -77,11 +109,19 @@ WGRAD_REL = 1e-3
 FORWARD_ATOL = 1e-4
 # whole batch-2 step: the loss through the kernels within 1e-5 of
 # all-plain; each gradient leaf's relative L2 distance to a float64
-# all-plain step within 1e-3, or within 3x the fp32 all-plain step's own
-# distance to it (the pose encoders' gradients are sums over every pixel
-# of warp-coordinate gradients that nearly cancel: in fp32 the plain path
-# itself is a few percent off float64 there, on the CPU as on the card)
+# all-plain step within 1e-3, or within 3x the leaf's float32 noise (the
+# largest distance to float64 of 1 + NOISE_STEPS all-plain float32 steps)
+# but never beyond 0.1. The pose encoders' gradients are sums over every
+# pixel that nearly cancel: in fp32 the plain path itself is a few percent
+# off float64 there, on the CPU as on the card, and one plain step alone
+# would measure that noise too low one time in five. The decoders' conv
+# gradients cancel as well (a refine head's bias to a few percent of its
+# summands), so their distance is taken relative to the summed magnitudes
+# of the products they sum (`summand_scales`), the scale of the error a
+# float32 sum of them may have.
 STEP_LOSS_REL, STEP_GRAD_REL, STEP_NOISE_X = 1e-5, 1e-3, 3.0
+STEP_GRAD_CAP = 0.1
+NOISE_STEPS = 3
 # published H100 SXM peaks (NVIDIA data sheet): HBM rate, fp32 CUDA cores
 PEAK_BYTES_S, PEAK_FP32_S = 3.35e12, 67e12
 
@@ -112,8 +152,35 @@ KERNELS = {
              SRC + "warp.cu", PALLAS + "pallas_warp.py:421"),
     "warp_bwd": (warp_kernel, "warp_bwd", warp_kernel.warp_bwd_plain,
                  SRC + "warp.cu", PALLAS + "pallas_warp.py:443"),
+    "reproj": (reproj_kernel, "reproj_fwd", reproj_kernel.reproj_plain,
+               SRC + "reproj.cu", PALLAS + "pallas_reproj.py:219"),
+    "reproj_bwd": (reproj_kernel, "reproj_bwd",
+                   reproj_kernel.reproj_bwd_plain, SRC + "reproj.cu",
+                   PALLAS + "pallas_reproj.py:240"),
+    "knn": (knn_kernel, "knn", knn_kernel.knn_plain, SRC + "knn.cu",
+            "fusiondepth_tpu/gdc/pallas_knn.py:106"),
 }
 FORWARD_KERNELS = ("maxpool3x3s2", "conv3x3_reflect", "conv3x3_zero_act")
+# the kernels of the stage-1 train step
+TRAIN_KERNELS = FORWARD_KERNELS + ("maxpool3x3s2_bwd", "conv3x3_dgrad",
+                                   "conv3x3_wgrad", "warp", "warp_bwd",
+                                   "reproj", "reproj_bwd")
+# the refine step: the frozen stage-1 forward, the refine decoder's
+# forward and backward, the warp and the fused reprojection loss; no pool
+# backward (stage 1 is frozen)
+REFINE_KERNELS = FORWARD_KERNELS + ("conv3x3_dgrad", "conv3x3_wgrad", "warp",
+                                    "warp_bwd", "reproj", "reproj_bwd")
+# the kernel line's launches: the path each kernel is driven by
+KERNEL_PATH = {**{k: "train" for k in TRAIN_KERNELS}, "knn": "inf_gdc"}
+REPROJ_ATOL = 1e-5
+REPROJ_BWD_TOL = dict(atol=1e-4, rtol=1e-4)
+# sorted neighbour distances (metres) of the KNN kernel and its plain
+# version; rows whose indices differ may only permute near-ties
+KNN_DIST_RTOL = 1e-6
+# stage 2 (BASELINE config 4): refine steps at batch 4, GDC at KITTI's
+# native size with the default capacities
+REFINE_BATCH, REFINE_FRAMES, GDC_FRAMES = 4, 12, 3
+NATIVE = (375, 1242)
 
 
 def emit(**kw):
@@ -224,7 +291,7 @@ def edge_calls(dev):
     second input (cat2end), 2x2 and 1x1 maps, and a positive BN shift,
     whose relu must not leak into the zero pad; warp coordinates exactly
     on the image border and displacements far beyond +-128 px, on a ragged
-    H x W."""
+    H x W; and those of `reproj_edge_calls`."""
     g = torch.Generator(device=dev).manual_seed(1)
 
     def randn(*shape, scale=1.0):
@@ -278,7 +345,7 @@ def edge_calls(dev):
     src = torch.rand((n, B, C, H, W), generator=g, device=dev)
     calls += [("warp", [ix, iy, src], {}),
               ("warp_bwd", [ix, iy, src, randn(n, k, B, C, H, W)], {})]
-    return calls
+    return calls + reproj_edge_calls(dev)
 
 
 def _tensors(out):
@@ -286,12 +353,33 @@ def _tensors(out):
             if t is not None]
 
 
+def knn_error(points, got, want):
+    """(max abs and max relative difference of the sorted neighbour
+    distances, rows whose indices differ) of two (N, k) neighbour lists of
+    `points`, over the rows of real points (the far sentinels' rows are
+    arbitrary by design and masked by GDC)."""
+    real = points.abs().amax(1) < 1e7
+    p = points.double()
+
+    def dists(idx):
+        return torch.sort((p[:, None] - p[idx.long()]).norm(dim=-1), 1)[0]
+
+    dg, dw = dists(got)[real], dists(want)[real]
+    diff = (dg - dw).abs()
+    rows = int(((got != want).any(1) & real).sum())
+    return (diff.max().item(), (diff / dw.clamp_min(1e-12)).max().item(),
+            rows)
+
+
 def check_kernels(calls):
     """Each call through its kernel and its plain version; returns
     {kernel: max abs error}. The pools must agree bit for bit (NaN where
     the plain version has NaN), the warp within WARP_ATOL, the convs and
     dgrad within CONV_TOL, wgrad within WGRAD_REL of the plain result's
-    largest magnitude."""
+    largest magnitude, the reprojection loss map within REPROJ_ATOL and
+    its warped cotangent within REPROJ_BWD_TOL, the KNN's sorted
+    neighbour distances within KNN_DIST_RTOL (so that rows whose indices
+    differ only permute near-ties)."""
     err = {}
     for name, args, kwargs in calls:
         mod, attr, plain, _, _ = KERNELS[name]
@@ -300,6 +388,15 @@ def check_kernels(calls):
         torch.cuda.synchronize()
         shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
         require(len(got) == len(want), f"{name}: outputs differ")
+        if name == "knn":
+            e, rel, rows = knn_error(args[0], got[0], want[0])
+            err[name] = max(err.get(name, 0.0), e)
+            emit(check="knn_call", points=shapes[0][0], k=args[1],
+                 max_abs_dist_err=e, max_rel_dist_err=rel,
+                 rows_with_other_indices=rows, tol=KNN_DIST_RTOL)
+            require(rel <= KNN_DIST_RTOL, f"knn differs at {shapes}: sorted "
+                    f"distances {rel} apart, {rows} rows")
+            continue
         for a, b in zip(got, want):
             e = (a - b).nan_to_num().abs().max().item()
             err[name] = max(err.get(name, 0.0), e)
@@ -310,17 +407,57 @@ def check_kernels(calls):
                 ok = e <= WARP_ATOL
             elif name == "conv3x3_wgrad":
                 ok = e <= WGRAD_REL * b.abs().max().item()
+            elif name == "reproj":
+                ok = e <= REPROJ_ATOL
+            elif name == "reproj_bwd":
+                ok = torch.allclose(a, b, **REPROJ_BWD_TOL)
             else:
                 ok = torch.allclose(a, b, **CONV_TOL)
             require(ok, f"{name} differs at {shapes}: max abs {e}")
     return err
 
 
+def emit_checks(err, calls, edges, path):
+    """One line per kernel held: its largest error, and on how many calls
+    of the path and edge cases it was held."""
+    for name, e in err.items():
+        emit(check=name, path=path,
+             calls_per_step=sum(c[0] == name for c in calls),
+             edge_cases=sum(c[0] == name for c in edges), max_abs_err=e)
+
+
+# operations per (pixel, channel) of a warp that the fused reprojection
+# loss needs at the least (the target's products and box means are shared
+# by the n * k warps and not counted). Forward, 42: the products x^2 and
+# xy (2); three separable 3x3 box means, each two vertical adds, two
+# horizontal adds and a scale (15); the SSIM algebra, mu_x mu_y, sigma_xy,
+# mu_x^2, sigma_x, the factors 2 mu_x mu_y + C1 and 2 sigma_xy + C2 and
+# their product, mu_x^2 + mu_y^2 + C1 and sigma_x + sigma_y + C2 and their
+# product, the quotient (15); (1 - SSIM) / 2, the clip, the 0.85 (5); the
+# L1 term, |x - y| times 0.15 added (4); the channel mean's add (1).
+# Backward, 73: the forward's products, box means and SSIM algebra again
+# (32); the cotangent a of SSIM, g times -0.85 / 2C inside the clip (2);
+# a / d and -a SSIM / d (3); dn/dmu_x = 2 mu_y (n2 - n1) and dd/dmu_x =
+# 2 mu_x (d2 - d1) (6); the three moment cotangents (6); their three box
+# adjoints (15); 2 x box(G_x2) + y box(G_xy) added to box(G_mu) (5); the
+# L1 term's sign times 0.15 g / C, added (4).
+REPROJ_OPS, REPROJ_BWD_OPS = 42.0, 73.0
+
+
 def call_flops(name, args, kwargs) -> float:
     """Operations of one call, counted from its inputs: 2 per multiply-add
     of a conv (9 taps per input channel of each output), 16 per warped
     (pixel, channel) and 26 per backward one, 9 compares per pooled output
-    and 36 per backward output."""
+    and 36 per backward output, REPROJ_OPS per (pixel, channel) of a warp
+    in the reprojection loss and REPROJ_BWD_OPS per backward one, 9 per
+    (query, point) pair of the KNN (the squared distance and the
+    compare)."""
+    if name == "reproj":
+        return REPROJ_OPS * args[0].numel()
+    if name == "reproj_bwd":
+        return REPROJ_BWD_OPS * args[0].numel()
+    if name == "knn":
+        return 9.0 * args[0].shape[0] ** 2
     if name in ("conv3x3_reflect", "conv3x3_zero_act"):
         x0, w = args[0], args[1]
         B, _, H, W = x0.shape
@@ -443,6 +580,126 @@ def step_grads(cfg, nets, batch, noise):
                          for n, p in nets.named_parameters()}
 
 
+def nudged(batch, seed: int):
+    """The batch with every image value moved one float32 step up or down
+    at random: a step whose inputs differ from the given one's by float32
+    rounding only."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    out = dict(batch)
+    for key, v in batch.items():
+        if key.startswith("color"):
+            up = (torch.rand(v.shape, generator=g) < 0.5).to(v.device)
+            out[key] = torch.nextafter(v, torch.where(
+                up, torch.full_like(v, float("inf")),
+                torch.full_like(v, float("-inf"))))
+    return out
+
+
+@contextlib.contextmanager
+def summand_scales(model, scales):
+    """For every ConvBlock of `model` (the decoders' reflect-pad convs and
+    disparity heads) whose output needs a gradient, add to
+    scales["<block>.conv.weight"] and scales["<block>.conv.bias"] the
+    magnitudes of the products that the block's weight and bias gradients
+    sum, summed the same way: the plain wgrad of |cotangent| and |input|,
+    and the |cotangent| summed over the batch and the pixels. The
+    cotangent is the one before the ELU, which is 1 where the output is
+    positive and output + 1 elsewhere."""
+    def on_output(name):
+        def hook(module, inputs, out):
+            x0 = inputs[0].detach().abs()
+            x1 = inputs[1] if len(inputs) > 1 else None
+            x1 = None if x1 is None else x1.detach().abs()
+            elu = out.detach() if module.elu else None
+
+            def add(g):
+                g = g.detach()
+                if elu is not None:
+                    g = g * torch.where(elu > 0, 1.0, elu + 1.0)
+                g = g.abs()
+                for leaf, v in (("weight", conv3x3.conv3x3_wgrad_plain(
+                        g, x0, x1, reflect=True)), ("bias", g.sum((0, 2, 3)))):
+                    key = f"{name}.conv.{leaf}"
+                    scales[key] = scales[key] + v if key in scales else v
+            if out.requires_grad:
+                out.register_hook(add)
+        return hook
+
+    handles = [m.register_forward_hook(on_output(n))
+               for n, m in model.named_modules() if isinstance(m, ConvBlock)]
+    try:
+        yield
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def hold_step(check, grads, batch, noise, grads64, kernels):
+    """A whole batch-2 step through the kernels against all-plain and
+    float64. `grads(batch, noise)` gives (loss, {leaf: gradient}) of one
+    float32 step, `grads64()` (loss, {leaf: gradient}, {leaf: summand
+    magnitudes}) of the float64 all-plain step on the same batch
+    (`summand_scales`). The loss through the kernels must be within
+    STEP_LOSS_REL of all-plain. Each gradient leaf's L2 distance to
+    float64, relative to the float64 leaf's norm (for a decoder conv's
+    leaf, to the norm of its summand magnitudes, which is no smaller: the
+    error a float32 sum may have is a fraction of it), must be within
+    STEP_GRAD_REL, or within STEP_NOISE_X times that leaf's float32 noise,
+    the largest such distance among the all-plain float32 step and
+    NOISE_STEPS more on `nudged` batches, but never beyond
+    STEP_GRAD_CAP."""
+    reset_launches()
+    loss_k, grads_k = grads(batch, noise)
+    require(all(LAUNCHES[k] for k in kernels),
+            f"{check}: the kernel step launched {LAUNCHES}")
+    with plain_kernels():
+        loss_p, grads_p = grads(batch, noise)
+        noisy = [grads_p] + [grads(nudged(batch, s), noise)[1]
+                             for s in range(NOISE_STEPS)]
+        loss_r, grads_r, scales = grads64()
+    require(set(scales) <= set(grads_r), f"{check}: leaves {set(scales)}")
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    rows = []
+    for n, ref in grads_r.items():
+        r = ref.norm()
+        if n in scales:
+            r = torch.maximum(r, scales[n].norm())
+        r = r.clamp_min(1e-30)
+
+        def dist(g):
+            return ((g.double() - ref).norm() / r).item()
+
+        noise_n = max(dist(g[n]) for g in noisy)
+        limit = max(STEP_GRAD_REL, min(STEP_NOISE_X * noise_n, STEP_GRAD_CAP))
+        rows.append(dict(leaf=n, kernel=dist(grads_k[n]),
+                         plain=dist(grads_p[n]), noise=noise_n, limit=limit,
+                         kernel_vs_plain=((grads_k[n] - grads_p[n]).norm()
+                                          / grads_p[n].norm().clamp_min(
+                                              1e-30)).item()))
+    bad = [row for row in rows if row["kernel"] > row["limit"]]
+    worst = max(rows, key=lambda row: row["kernel"] / row["limit"])
+    worst_kp = max(rows, key=lambda row: row["kernel_vs_plain"])
+    emit(check=check, batch=CHECK_BATCH, loss=loss_k, loss_rel_diff=loss_rel,
+         loss_f64=loss_r, loss_rel_diff_f64=abs(loss_k - loss_r) / abs(loss_r),
+         worst_grad_rel_l2=worst_kp["kernel_vs_plain"],
+         worst_leaf=worst_kp["leaf"],
+         leaves_over_1e3=sum(row["kernel_vs_plain"] > STEP_GRAD_REL
+                             for row in rows),
+         worst_kernel_vs_f64=worst["kernel"], its_plain_vs_f64=worst["plain"],
+         its_noise_vs_f64=worst["noise"], its_limit=worst["limit"],
+         worst_kernel_leaf=worst["leaf"], leaves=len(rows),
+         summand_scaled_leaves=len(scales), noise_steps=NOISE_STEPS + 1,
+         leaves_at_cap=sum(row["limit"] == STEP_GRAD_CAP for row in rows),
+         tol=[STEP_LOSS_REL, STEP_GRAD_REL, STEP_NOISE_X, STEP_GRAD_CAP])
+    # the leaves whose float32 noise sets their limit above STEP_GRAD_REL
+    emit(check=check + "_noisy_leaves", leaves=[
+        row for row in sorted(rows, key=lambda row: -row["noise"])
+        if row["limit"] > STEP_GRAD_REL][:12])
+    require(loss_rel <= STEP_LOSS_REL, f"{check}: loss differs by {loss_rel}")
+    require(not bad, f"{check}: gradient leaves off float64 beyond the "
+            f"float32 noise: {bad[:5]}")
+
+
 def infer_phase(dev, tmp):
     """Step 4: the inference path, as in the first slice."""
     cfg = Config(num_layers=18, height=HEIGHT, width=WIDTH,
@@ -553,50 +810,26 @@ def train_phase(dev, tmp):
     nets.zero_grad(set_to_none=True)
     edges = edge_calls(dev)
     err = check_kernels(calls + edges)
-    for name, e in err.items():
-        emit(check=name, path="train",
-             calls_per_step=sum(c[0] == name for c in calls),
-             edge_cases=sum(c[0] == name for c in edges), max_abs_err=e)
+    emit_checks(err, calls, edges, "train")
     del calls, edges
 
     # a whole batch-2 step through the kernels against all-plain, both
     # held against an all-plain float64 step of the same weights
-    reset_launches()
-    loss_k, grads_k = step_grads(cfg, nets, small, noise)
-    require(all(LAUNCHES.values()), f"kernel step launched {LAUNCHES}")
-    with plain_kernels():
-        loss_p, grads_p = step_grads(cfg, nets, small, noise)
+    def grads64():
         cfg64 = cfg.replace(compute_dtype="float64")
         ref = copy.deepcopy(nets).double()
         ref.cfg = cfg64
-        loss_r, grads_r = step_grads(
-            cfg64, ref, {k: v.double() for k, v in small.items()},
-            [n.double() for n in noise])
-    del ref
-    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-    rows = []
-    for n in grads_r:
-        r = grads_r[n].norm().clamp_min(1e-30)
-        rows.append((((grads_k[n].double() - grads_r[n]).norm() / r).item(),
-                     ((grads_p[n].double() - grads_r[n]).norm() / r).item(),
-                     ((grads_k[n] - grads_p[n]).norm()
-                      / grads_p[n].norm().clamp_min(1e-30)).item(), n))
-    bad = [row for row in rows if row[0] > max(STEP_GRAD_REL,
-                                               STEP_NOISE_X * row[1])]
-    worst_kp = max(rows, key=lambda row: row[2])
-    worst_k = max(rows, key=lambda row: row[0])
-    emit(check="train_step_vs_all_plain", batch=CHECK_BATCH, loss=loss_k,
-         loss_rel_diff=loss_rel, loss_f64=loss_r,
-         loss_rel_diff_f64=abs(loss_k - loss_r) / abs(loss_r),
-         worst_grad_rel_l2=worst_kp[2], worst_leaf=worst_kp[3],
-         leaves_over_1e3=sum(row[2] > STEP_GRAD_REL for row in rows),
-         worst_kernel_vs_f64=worst_k[0], its_plain_vs_f64=worst_k[1],
-         worst_kernel_leaf=worst_k[3], leaves=len(rows),
-         tol=[STEP_LOSS_REL, STEP_GRAD_REL, STEP_NOISE_X])
-    require(loss_rel <= STEP_LOSS_REL, f"step loss differs by {loss_rel}")
-    require(not bad, f"gradient leaves off float64 beyond the plain "
-            f"path's own error: {bad[:5]}")
-    del nets, grads_k, grads_p, grads_r
+        scales = {}
+        with summand_scales(ref, scales):
+            loss, grads = step_grads(cfg64, ref, {k: v.double() for k, v in
+                                                  small.items()},
+                                     [n.double() for n in noise])
+        return loss, grads, scales
+
+    hold_step("train_step_vs_all_plain",
+              lambda b, n: step_grads(cfg, nets, b, n), small, noise,
+              grads64, TRAIN_KERNELS)
+    del nets
 
     # the entry point: 3 steps at batch 12 through the kernels
     trainer = Trainer(cfg, train_dataset=data, device=dev)
@@ -615,8 +848,9 @@ def train_phase(dev, tmp):
     require(len(losses) == TRAIN_FRAMES // TRAIN_BATCH,
             f"{len(losses)} steps")
     require(all(np.isfinite(losses)), f"non-finite losses {losses}")
-    for name, c in launches.items():
-        require(c > 0, f"train: kernel {name} was never launched")
+    for name in TRAIN_KERNELS:
+        require(launches[name] > 0, f"train: kernel {name} was never "
+                "launched")
 
     path = trainer.save("smoke")
     infer = Infer(cfg.replace(load_weights_folder=path), device=dev)
@@ -628,13 +862,17 @@ def train_phase(dev, tmp):
     emit(check="checkpoint_reload_in_infer", max_abs_err=reload_err)
     require(reload_err <= 1e-6, f"reloaded bundle differs by {reload_err}")
 
-    # timings at batch 12: each kernel over the calls of one step, and the
-    # step itself through the kernels against all-plain
+    # every kernel on the inputs of a batch-12 step, the main path's;
+    # timings: each kernel over the calls of that step, and the step itself
+    # through the kernels against all-plain
     big = trainer.put_batch(collate([data[i] for i in range(TRAIN_BATCH)]))
     calls = []
     with plain_kernels(record=calls):
         loss_fn(cfg, trainer.nets, big)[0].backward()
     trainer.nets.zero_grad(set_to_none=True)
+    err_big = check_kernels(calls)
+    emit_checks(err_big, calls, [], "train_batch12")
+    err = {k: max(e, err_big.get(k, 0.0)) for k, e in err.items()}
     ktimes = time_kernels(calls)
     del calls
 
@@ -656,6 +894,283 @@ def train_phase(dev, tmp):
     return err, launches, ktimes
 
 
+def reproj_edge_calls(dev):
+    """Inputs the train step does not give the fused reprojection loss: H
+    that is no multiple of the TPU kernel's 16-row blocks, W = 2, H = 2, a
+    whole plane where warped == target exactly (the SSIM term on its clip
+    bound, the L1 term at its kink) and such a patch inside random
+    images. Part of `edge_calls`."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    calls = []
+    for n, k, B, H, W in ((2, 4, 2, 37, 53), (1, 2, 3, 20, 2),
+                          (2, 1, 1, 2, 9), (1, 1, 2, 45, 70)):
+        warped = torch.rand((n, k, B, 3, H, W), generator=g, device=dev)
+        target = torch.rand((B, 3, H, W), generator=g, device=dev)
+        warped[-1, -1, -1] = target[-1]
+        if H >= 20 and W >= 20:
+            warped[0, 0, 0, :, 3:15, 4:16] = target[0, :, 3:15, 4:16]
+        gl = torch.randn((n, k, B, H, W), generator=g, device=dev)
+        calls += [("reproj", [warped, target], {}),
+                  ("reproj_bwd", [warped, target, gl], {})]
+    return calls
+
+
+def knn_edge_calls(dev):
+    """A GDC-sized cloud (N = 40960, GDC's default capacities) with exact
+    duplicates, a regular grid (many equidistant neighbours) and padded
+    rows at the far sentinel, spread along x by index as gdc_correct
+    places them; and a ragged N."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    N = 32768 + 8192
+    pts = torch.randn((N, 3), generator=g, device=dev) * 10
+    pts[1000:1500] = pts[:500]
+    ar = torch.arange(16, device=dev, dtype=torch.float32)
+    grid = torch.stack(torch.meshgrid(ar, ar, ar, indexing="ij"),
+                       -1).reshape(-1, 3) * 0.25
+    pts[5000:5000 + grid.shape[0]] = grid
+    pad = 3000
+    pts[-pad:] = 1e8
+    pts[-pad:, 0] += torch.arange(N - pad, N, device=dev,
+                                  dtype=torch.float32)
+    ragged = torch.randn((1037, 3), generator=g, device=dev)
+    return [("knn", [pts, 10], {}), ("knn", [ragged, 10], {})]
+
+
+def cdist_topk(points, k):
+    """The KNN as two PyTorch calls per chunk of queries, cdist and topk
+    (self excluded): the yardstick for the KNN kernel, which no single
+    library call computes."""
+    N, chunk = points.shape[0], knn_kernel.QUERY_CHUNK
+    for lo in range(0, N, chunk):
+        d = torch.cdist(points[lo:lo + chunk], points)
+        rows = torch.arange(d.shape[0], device=d.device)
+        d[rows, lo + rows] = float("inf")
+        torch.topk(d, k, dim=1, largest=False)
+
+
+class TreeFrames(SmokeFrames):
+    """Synthetic frames at the network size named as the frames of the
+    synthetic KITTI drive, each with the drive's LiDAR depth map at the
+    native size as its ground truth (for evaluate)."""
+
+    def __init__(self, cfg: Config, n: int, root: str):
+        super().__init__(cfg, n)
+        self.root = root
+        date = DRIVE.split("/")[0]
+        self.gt = [generate_depth_map(
+            os.path.join(root, date), os.path.join(
+                root, DRIVE, "velodyne_points", "data", f"{i:010d}.bin"), 2)
+            for i in range(n)]
+
+    def __getitem__(self, i):
+        return {**self.inner[i], "depth_gt": self.gt[i]}
+
+    def parse_line(self, i):
+        return DRIVE, i, "l"
+
+    def beam_folder(self):
+        return "4beam"
+
+    def frame_str(self, i):
+        return f"{int(i):010d}"
+
+
+def gdc_phase(dev, tmp, weights):
+    """Path B, offline GDC: the inf_depth caches of Infer.run_split, then
+    run_inf_gdc at KITTI's native size with the default capacities (KNN
+    kernel)."""
+    root = os.path.join(tmp, "kitti")
+    build_synthetic_kitti_tree(root, n_frames=GDC_FRAMES, height=HEIGHT,
+                               width=WIDTH, native=NATIVE)
+    cfg = Config(num_layers=18, height=HEIGHT, width=WIDTH,
+                 weights_init="scratch", eval_batch_size=1, log_dir=tmp,
+                 data_path=root, load_weights_folder=weights)
+    frames = TreeFrames(cfg, GDC_FRAMES, root)
+    require(Infer(cfg, device=dev).run_split(frames, root) == GDC_FRAMES,
+            "run_split wrote too few frames")
+    lines = [" ".join(map(str, frames.parse_line(i)))
+             for i in range(GDC_FRAMES)]
+    date = DRIVE.split("/")[0]
+    calib = Calibration.from_file(os.path.join(root, date,
+                                               "calib_cam_to_cam.txt"))
+
+    # the kernel on the cloud of a frame, and GDC through plain KNN
+    calls = []
+    with plain_kernels(record=calls):
+        plain0 = gdc_one_frame(cfg, root, DRIVE, 0, "l", calib, device=dev)
+    require([c[0] for c in calls] == ["knn"], f"GDC made {calls}")
+    edges = knn_edge_calls(dev)
+    err = check_kernels(calls + edges)
+    emit_checks(err, calls, edges, "inf_gdc")
+    pts, k = calls[0][1]
+    # kernel and plain version round d^2 alike, so they give one graph
+    same_graph = torch.equal(knn_kernel.knn(pts, k),
+                             knn_kernel.knn_plain(pts, k))
+    require(same_graph, "the KNN kernel and its plain version give frame 0 "
+            "different neighbour graphs")
+    ktimes = time_kernels(calls)
+    lib = [cuda_ms(lambda: cdist_topk(pts, k), iters=3, warmup=1)
+           for _ in range(2)]
+    ktimes["knn"]["cdist_topk_ms"] = sum(lib) / 2
+    del calls, edges
+
+    # the entry point over every frame
+    torch.cuda.synchronize()
+    reset_launches()
+    t = time.perf_counter()
+    n = run_inf_gdc(cfg, lines, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = dict(LAUNCHES)
+    require(n == GDC_FRAMES and launches["knn"] == GDC_FRAMES,
+            f"run_inf_gdc wrote {n} frames, {launches['knn']} KNN launches")
+    out_dir = os.path.join(root, DRIVE, "inf_gdc_4beam")
+    for i in range(GDC_FRAMES):
+        d = np.load(os.path.join(out_dir, f"{i}_l.npy"))
+        beams = generate_depth_map(
+            os.path.join(root, date),
+            os.path.join(root, DRIVE, "4beam", f"{i:010d}.bin"), 2,
+            vel_depth=True)
+        require(d.shape == NATIVE and d.dtype == np.float32
+                and bool(np.isfinite(d).all()), f"GDC frame {i}: {d.shape}")
+        require(np.array_equal(d[beams > 0], beams[beams > 0]),
+                f"GDC frame {i}: the LiDAR is not pasted")
+    kern0 = np.load(os.path.join(out_dir, "0_l.npy"))
+    diff = float(np.abs(kern0 - plain0).max())
+    emit(phase="run_inf_gdc", frames=n, seconds=secs,
+         ms_per_frame=secs / n * 1e3, launches=launches,
+         native=list(NATIVE), caps=[32768, 8192])
+    emit(check="gdc_kernel_vs_plain_knn", frame=0, same_graph=same_graph,
+         max_abs_diff=diff)
+    # the rest of GDC is deterministic: one neighbour graph, one result
+    require(diff == 0.0, f"GDC through the kernel and through plain KNN "
+            f"differ by {diff} on the same neighbour graph")
+    return err, launches, ktimes, frames
+
+
+class RefineFrames(SmokeFrames):
+    """Synthetic frames carrying an inf_gdc target (metres)."""
+
+    def __init__(self, cfg: Config, n: int):
+        super().__init__(cfg, n)
+        rng = np.random.default_rng(6)
+        self.gdc = rng.uniform(5.0, 30.0, (n, cfg.height, cfg.width, 1)) \
+            .astype(np.float32)
+
+    def __getitem__(self, i):
+        return {**self.inner[i], "inf_gdc": self.gdc[i]}
+
+
+def refine_grads(cfg, nets, batch, noise):
+    """(loss, {refine2d param: grad}) of one refine step, no update."""
+    nets.zero_grad(set_to_none=True)
+    loss, _ = refine_loss(cfg, nets, batch, noise=noise)
+    loss.backward()
+    return loss.item(), {n: p.grad.detach().clone()
+                         for n, p in nets.refine2d.named_parameters()}
+
+
+def refine_phase(dev, tmp, weights, tree_frames):
+    """Path B, the refiner (BASELINE config 4: ResNet-18, 640x192,
+    batch 4): the kernels on the calls of a batch-4 refine step, a whole
+    batch-2 step against all-plain and float64, Refiner.run_epoch, a
+    checkpoint round trip, and evaluate with refine_2d and with
+    eval_gdc."""
+    cfg = Config(num_layers=18, height=HEIGHT, width=WIDTH,
+                 batch_size=REFINE_BATCH, weights_init="scratch",
+                 log_dir=tmp, num_workers=4, log_frequency=1,
+                 model_name="smoke", eval_batch_size=1,
+                 refine_load_weights_folder=weights,
+                 data_path=tree_frames.root)
+    data = RefineFrames(cfg, REFINE_FRAMES)
+    refiner = Refiner(cfg, train_dataset=data, device=dev)
+    nets = refiner.nets
+    small = refiner.put_batch(collate([data[i] for i in range(CHECK_BATCH)]))
+    big = refiner.put_batch(collate([data[i] for i in range(REFINE_BATCH)]))
+    noise = [step_noise(cfg, CHECK_BATCH, dev)]
+
+    # every kernel on the inputs of a batch-4 step, the main path's
+    calls = []
+    with plain_kernels(record=calls):
+        refine_loss(cfg, nets, big)[0].backward()
+    nets.zero_grad(set_to_none=True)
+    err = check_kernels(calls)
+    emit_checks(err, calls, [], "refine")
+    del calls
+
+    # a whole batch-2 step through the kernels against all-plain, both
+    # held against an all-plain float64 step of the same weights
+    def grads64():
+        ref = copy.deepcopy(nets).double()
+        scales = {}
+        with summand_scales(ref.refine2d, scales):
+            loss, grads = refine_grads(
+                cfg, ref, {k: v.double() for k, v in small.items()},
+                [[n.double() for n in noise[0]]])
+        return loss, grads, scales
+
+    hold_step("refine_step_vs_all_plain",
+              lambda b, n: refine_grads(cfg, nets, b, n), small, noise,
+              grads64, REFINE_KERNELS)
+
+    # the entry point: 3 steps at batch 4 through the kernels
+    torch.cuda.synchronize()
+    reset_launches()
+    t = time.perf_counter()
+    losses = [float(x) for x in refiner.run_epoch()]
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    emit(phase="refiner_run_epoch", steps=len(losses), batch=REFINE_BATCH,
+         seconds=time.perf_counter() - t, losses=losses, launches=launches)
+    require(len(losses) == REFINE_FRAMES // REFINE_BATCH,
+            f"{len(losses)} refine steps")
+    require(all(np.isfinite(losses)), f"non-finite refine losses {losses}")
+    for name in REFINE_KERNELS:
+        require(launches[name] > 0, f"refine: kernel {name} was never "
+                "launched")
+
+    path = refiner.save("smoke")
+    reloaded = Refiner(cfg, device=dev)
+    reloaded.load(path)
+    probe = device_batch(collate([tree_frames[i] for i in range(2)]), dev,
+                         ("color_aug", "two_channel", "four_beam", "K"))
+    reload_err = (reloaded.infer(probe) - refiner.infer(probe)).abs().max()
+    emit(check="refine_checkpoint_reload", max_abs_err=reload_err.item())
+    require(reload_err.item() == 0.0, f"reloaded refiner differs by "
+            f"{reload_err.item()}")
+
+    evals = {}
+    for label, flags in (("refine_2d", dict(refine_2d=True)),
+                         ("refine_2d+eval_gdc", dict(refine_2d=True,
+                                                      eval_gdc=True))):
+        ecfg = cfg.replace(load_weights_folder=path, **flags)
+        reset_launches()
+        t = time.perf_counter()
+        metrics = evaluate(ecfg, tree_frames, device=dev)
+        torch.cuda.synchronize()
+        evals[label] = dict(LAUNCHES)
+        emit(phase="evaluate", mode=label, frames=len(tree_frames),
+             seconds=time.perf_counter() - t, metrics=metrics,
+             launches=evals[label])
+        require(metrics is not None and all(
+            np.isfinite(v) for v in metrics.values()),
+            f"evaluate {label}: {metrics}")
+    require(evals["refine_2d+eval_gdc"]["knn"] == len(tree_frames),
+            "evaluate with eval_gdc ran no KNN kernel")
+
+    def plain_step():
+        with plain_kernels():
+            refiner.run_step(big, on_device=True)
+
+    step_ms, plain_ms = paired_ms(
+        lambda: refiner.run_step(big, on_device=True), plain_step, iters=5,
+        warmup=1)
+    emit(timing="refine_step", batch=REFINE_BATCH, ms=step_ms,
+         plain_ms=plain_ms, samples_per_s=REFINE_BATCH / step_ms * 1e3,
+         plain_samples_per_s=REFINE_BATCH / plain_ms * 1e3)
+    return err, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
@@ -670,30 +1185,44 @@ def main() -> int:
     build.load()
     emit(phase="build", seconds=time.perf_counter() - t0, library=lib.name)
 
+    errs, launches, times = [], {}, {}
     with tempfile.TemporaryDirectory() as tmp:
-        infer_err, infer_launches = infer_phase(dev, tmp)
-        train_err, train_launches, ktimes = train_phase(dev, tmp)
+        err, launches_infer = infer_phase(dev, tmp)
+        errs.append(err)
+        err, launches["train"], ktimes = train_phase(dev, tmp)
+        errs.append(err)
+        times.update({k: ktimes[k] for k in TRAIN_KERNELS})
+        # one stage-1 checkpoint of seeded weights for stage 2
+        cfg = Config(num_layers=18, height=HEIGHT, width=WIDTH,
+                     weights_init="scratch", log_dir=tmp)
+        weights = ckpt.save_checkpoint(cfg, seeded_weights(cfg), "stage1")
+        err, launches["inf_gdc"], ktimes, frames = gdc_phase(dev, tmp,
+                                                             weights)
+        errs.append(err)
+        times["knn"] = ktimes["knn"]
+        err, launches["refiner"] = refine_phase(dev, tmp, weights, frames)
+        errs.append(err)
+    launches.update(launches_infer)
     card = card_line()
-    for name, r in ktimes.items():
-        emit(timing=name, per=f"batch-{TRAIN_BATCH} train step, all its "
-             "calls", card=card, **r)
+    for name, r in times.items():
+        emit(timing=name, per=f"all calls of one {KERNEL_PATH[name]} step "
+             "or frame", card=card, **r)
 
     print(card)
     kernels = []
     for name, (_, _, _, src, tpu) in KERNELS.items():
-        r = ktimes[name]
+        r = times[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
-            "launches": train_launches[name],
-            "max_abs_err": max(train_err.get(name, 0.0),
-                               infer_err.get(name, 0.0)),
+            "launches": launches[KERNEL_PATH[name]][name],
+            "max_abs_err": max(e.get(name, 0.0) for e in errs),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             "library_of_ms": r["library_of_ms"],
-            "calls_per_step": r["calls"],
-            "launches_by_path": {p: c[name]
-                                 for p, c in infer_launches.items()}})
+            "calls_per_step": r["calls"], "path": KERNEL_PATH[name],
+            "launches_by_path": {p: c[name] for p, c in launches.items()}})
+    kernels[-1]["cdist_topk_ms"] = times["knn"]["cdist_topk_ms"]
     emit(kernels=kernels)
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),

@@ -12,11 +12,14 @@ Layout:
              planes-layout loss pieces, warp)
   models/    nn.Modules (ResNet encoders, depth and pose decoders,
              FusionNets)
-  data/      host data pipeline (KITTI, synthetic, loader, prefetch)
+  gdc/       graph-based depth correction (stage 2's offline teacher)
+  data/      host data pipeline (KITTI, synthetic, loader, prefetch,
+             calibration, a synthetic on-disk KITTI drive)
   training/  photometric loss, train step, trainer, inference and
-             evaluation drivers, checkpoints
+             evaluation drivers, checkpoints, the GDC driver, the refiner
 
-The entry points (`Trainer`, `Infer`, `predict_disparities`, the CLIs) run
+The entry points (`Trainer`, `Infer`, `predict_disparities`, `Refiner`,
+`run_inf_gdc`, `evaluate`, the CLIs) run
 on cuda:0 unless the caller passes another device, and raise when there is
 no card. This package imports torch and never jax, flax or fusiondepth_tpu.
 """

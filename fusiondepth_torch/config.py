@@ -183,10 +183,10 @@ class Config:
     # additive fusion of the pair). Applies when beam_encoder is on,
     # depth<=34, separate_resnet pose, no s2d stem/predictive_mask.
     paired_encoders: bool = False
-    # Fused SSIM+L1 reprojection-loss Pallas kernel (ops/pallas_reproj.py)
-    # instead of the XLA banded-matmul box3 path — the box-filtered SSIM
-    # moment fields never touch HBM. Same numerics (reflect boundaries,
-    # f32 accumulation); TPU only.
+    # Fused SSIM+L1 reprojection-loss Pallas kernel of the JAX package
+    # (TPU only). Accepted for parity of the two packages' flags and read
+    # by nothing here: the port always takes its fused CUDA kernel when
+    # SSIM is on (training/photometric.py::reprojection_maps).
     pallas_reproj: bool = False
     # W-folded decoder layout: view (B,H,W,C) as (B,H,W/F,F*C) so the
     # 16-64 channel decoder stages fill all 128 TPU lanes instead of

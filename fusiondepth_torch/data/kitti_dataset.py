@@ -16,6 +16,7 @@ from PIL import Image
 from fusiondepth_torch.data.kitti_io import generate_depth_map
 from fusiondepth_torch.data.mono_dataset import MonoDataset, pil_loader
 from fusiondepth_torch.data.two_channel import max_pool2
+from fusiondepth_torch.ops.resize import resize_linear_np
 
 SIDE_MAP = {"2": 2, "3": 3, "l": 2, "r": 3}
 
@@ -141,19 +142,10 @@ class KITTIDataset(MonoDataset):
         path = os.path.join(self.data_path, folder, sub,
                             f"{int(frame_index)}_{side}.npy")
         gdc = np.load(path).astype(np.float32)
-        gdc = _resize_bilinear_np(gdc, self.height, self.width)
+        gdc = resize_linear_np(gdc, self.height, self.width)
         if do_flip:
             gdc = np.fliplr(gdc)
         return gdc[..., None]
-
-
-def _resize_bilinear_np(arr: np.ndarray, h: int, w: int) -> np.ndarray:
-    """Host-side bilinear resize (align_corners=False) via cv2."""
-    import cv2
-
-    if arr.shape == (h, w):
-        return arr
-    return cv2.resize(arr, (w, h), interpolation=cv2.INTER_LINEAR)
 
 
 class KITTIRAWDataset(KITTIDataset):

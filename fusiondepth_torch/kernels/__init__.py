@@ -10,7 +10,7 @@ went through the kernels (see `chip_smoke.py`).
 A kernel that needs a gradient is a `torch.autograd.Function` whose forward
 and backward call such wrappers, so the backward pass launches kernels
 too, each counted under its own name (`maxpool3x3s2_bwd`, `warp_bwd`,
-`conv3x3_dgrad`, `conv3x3_wgrad`).
+`conv3x3_dgrad`, `conv3x3_wgrad`, `reproj_bwd`).
 """
 
 from __future__ import annotations
@@ -21,7 +21,8 @@ import torch
 
 LAUNCHES = {"maxpool3x3s2": 0, "maxpool3x3s2_bwd": 0, "conv3x3_reflect": 0,
             "conv3x3_zero_act": 0, "conv3x3_dgrad": 0, "conv3x3_wgrad": 0,
-            "warp": 0, "warp_bwd": 0}
+            "warp": 0, "warp_bwd": 0, "reproj": 0, "reproj_bwd": 0,
+            "knn": 0}
 
 
 def reset_launches() -> None:

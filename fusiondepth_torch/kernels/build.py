@@ -56,6 +56,14 @@ SIGNATURES = {
     "fd_warp_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # ix, iy, src, g, gix, giy, N, K, B, C, H, W, stream
     "fd_warp_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # warped, target, out, N*K, B, C, H, W, stream
+    "fd_reproj_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # warped, target, g, dwarped, N*K, B, C, H, W, stream
+    "fd_reproj_bwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # N
+    "fd_knn_splits": (_I,),
+    # pts, N, k, part_d, part_i, out, stream
+    "fd_knn": (_P, _I, _I, _P, _P, _P, _P),
 }
 
 

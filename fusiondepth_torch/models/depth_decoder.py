@@ -8,10 +8,18 @@ a sigmoid disparity head at every scale in `scales`; `cat2end` feeds the
 2-channel LiDAR to the scale-0 head beside the features. `folded_decoder`
 only re-lays this math out for the TPU, so the port computes it as is.
 
+The refiner's hooks (the refine2d decoder of `training/refiner.py`):
+`road` injects a pseudo-3D map (B, 3 [+3 with `catxy`], H_i, W_i) beside
+the skip at every stage i in `scales`; `deep` makes every block two
+stacked ConvBlocks, `a` (C -> C) then `b` (C -> features); `tanh_head`
+replaces the sigmoid heads by tanh.
+
 Every ConvBlock and disparity head is one call of the reflect-pad conv
 kernel (`kernels/conv3x3.py`), which takes the skip concat
 [upsampled, skip] as two inputs, so the concatenated tensor is never
-built. The refiner's road/catxy/deep/tanh hooks are not ported yet.
+built. Where a stage has three inputs (upsampled, skip and the refiner's
+map), the skip and the map go to the kernel's second input through one
+torch.cat.
 """
 
 from __future__ import annotations
@@ -35,7 +43,9 @@ class ConvBlock(nn.Module):
 
     def __init__(self, cin: int, cout: int, elu: bool = True):
         super().__init__()
-        self.conv = nn.Conv2d(cin, cout, 3)
+        # no default init: the decoder's lecun_normal_ writes the weight
+        # and zeroes the bias
+        self.conv = nn.utils.skip_init(nn.Conv2d, cin, cout, 3)
         self.elu = elu
 
     def forward(self, x0: torch.Tensor,
@@ -44,23 +54,44 @@ class ConvBlock(nn.Module):
                                        x1, self.elu)
 
 
+class DeepBlock(nn.Module):
+    """Two stacked ConvBlocks (`deep`): a (cin -> cin), b (cin -> cout)."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.a = ConvBlock(cin, cin)
+        self.b = ConvBlock(cin, cout)
+
+    def forward(self, x0: torch.Tensor,
+                x1: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.b(self.a(x0, x1))
+
+
 class DepthDecoder(nn.Module):
     def __init__(self, num_ch_enc: Sequence[int],
                  scales: Sequence[int] = (0, 1, 2, 3),
                  num_output_channels: int = 1, use_skips: bool = True,
-                 cat2end: bool = False,
+                 cat2end: bool = False, road: bool = False,
+                 catxy: bool = False, deep: bool = False,
+                 tanh_head: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.scales = tuple(scales)
         self.use_skips = use_skips
         self.cat2end = cat2end
+        self.road = road
+        self.tanh_head = tanh_head
+        block = DeepBlock if deep else ConvBlock
+        map_ch = (3 + (3 if catxy else 0)) if road else 0
         for i in range(4, -1, -1):
             cin = num_ch_enc[-1] if i == 4 else NUM_CH_DEC[i + 1]
-            self.add_module(f"upconv_{i}_0", ConvBlock(cin, NUM_CH_DEC[i]))
+            self.add_module(f"upconv_{i}_0", block(cin, NUM_CH_DEC[i]))
             cin = NUM_CH_DEC[i]
             if use_skips and i > 0:
                 cin += num_ch_enc[i - 1]
-            self.add_module(f"upconv_{i}_1", ConvBlock(cin, NUM_CH_DEC[i]))
+            if use_skips and i in self.scales:
+                cin += map_ch
+            self.add_module(f"upconv_{i}_1", block(cin, NUM_CH_DEC[i]))
             if i in self.scales:
                 cin = NUM_CH_DEC[i] + (2 if i == 0 and cat2end else 0)
                 self.add_module(f"dispconv_{i}", ConvBlock(
@@ -69,13 +100,19 @@ class DepthDecoder(nn.Module):
 
     def forward(self, input_features: Sequence[torch.Tensor],
                 two_channel: Optional[torch.Tensor] = None,
-                beam_features: Optional[Sequence[torch.Tensor]] = None
+                beam_features: Optional[Sequence[torch.Tensor]] = None,
+                depth_maps: Optional[Dict[tuple, torch.Tensor]] = None
                 ) -> Dict[tuple, torch.Tensor]:
         """input_features: the 5-level NCHW pyramid, coarsest last;
         beam_features: the beam encoder's pyramid, added at every level;
-        two_channel: (B, 2, H, W), read only with cat2end.
+        two_channel: (B, 2, H, W), read only with cat2end;
+        depth_maps: {("disp", i): (B, 3 [+3], H/2^i, W/2^i)}, the road
+        injections, required with road.
         Returns {("disp", s): (B, C, H/2^s, W/2^s)} for s in scales."""
-        dtype = self.upconv_4_0.conv.weight.dtype
+        if self.road != (depth_maps is not None):
+            raise ValueError("depth_maps are given exactly when the decoder "
+                             "is built with road=True")
+        dtype = next(self.parameters()).dtype
 
         def level(i):
             f = input_features[i]
@@ -87,12 +124,17 @@ class DepthDecoder(nn.Module):
         x = level(4)
         for i in range(4, -1, -1):
             x = getattr(self, f"upconv_{i}_0")(x)
-            skip = level(i - 1) if self.use_skips and i > 0 else None
-            x = getattr(self, f"upconv_{i}_1")(upsample2x_nearest(x), skip)
+            rest = [level(i - 1)] if self.use_skips and i > 0 else []
+            if self.road and self.use_skips and i in self.scales:
+                rest.append(depth_maps[("disp", i)].to(dtype))
+            second = torch.cat(rest, 1) if len(rest) > 1 else \
+                (rest[0] if rest else None)
+            x = getattr(self, f"upconv_{i}_1")(upsample2x_nearest(x), second)
             if i in self.scales:
                 extra = None
                 if i == 0 and self.cat2end:
                     extra = two_channel.to(dtype)
                 d = getattr(self, f"dispconv_{i}")(x, extra)
-                outputs[("disp", i)] = torch.sigmoid(d)
+                outputs[("disp", i)] = torch.tanh(d) if self.tanh_head \
+                    else torch.sigmoid(d)
         return outputs

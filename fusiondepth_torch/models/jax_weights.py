@@ -4,8 +4,9 @@ state dicts, both ways, for the depth and pose networks.
 A JAX FusionNets tree is `{net: {"params": ..., "batch_stats": ...}}`,
 nested dicts of arrays; this module needs only numpy. The nets covered are
 `encoder`, `beam_encoder`, `depth`, `predictive_mask`, `pose_encoder`,
-`beam_encoder_pose` and `pose` (the PoseDecoder); other subtrees are
-skipped. The trees the JAX package builds with its
+`beam_encoder_pose` and `pose` (the PoseDecoder), and the refiner's
+`refine2d` decoder (its JAX variables `{"params": ...}` under that key);
+other subtrees are skipped. The trees the JAX package builds with its
 default TPU layout flags have the generic layout's names and shapes, so
 they carry over unchanged.
 
@@ -15,8 +16,9 @@ Mapping, JAX -> port:
   batch_stats mean / var     -> running_mean / running_var
   encoder layer{s}_{b}       -> layer{s}.{b}
   downsample_conv / _bn      -> downsample.0 / downsample.1
-Decoder module names (`upconv_4_0/conv`, `dispconv_0/conv`) and pose
-decoder ones (`squeeze`, `pose_0`..`pose_2`) are the same.
+Decoder module names (`upconv_4_0/conv`, `dispconv_0/conv`, and with
+`deep` `upconv_4_0/a/conv`, `upconv_4_0/b/conv`) and pose decoder ones
+(`squeeze`, `pose_0`..`pose_2`) are the same.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import numpy as np
 import torch
 
 NETS = ("encoder", "beam_encoder", "depth", "predictive_mask",
-        "pose_encoder", "beam_encoder_pose", "pose")
+        "pose_encoder", "beam_encoder_pose", "pose", "refine2d")
 
 _BLOCK = re.compile(r"^layer(\d+)_(\d+)$")
 _MODULE_TO_TORCH = {"downsample_conv": "downsample.0",

@@ -42,7 +42,10 @@ RESNET_FEATURE_CHANNELS = {
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, k, stride, padding=k // 2, bias=False)
+    # no default init: lecun_normal_ writes every conv weight of the
+    # encoder right after it is built
+    return nn.utils.skip_init(nn.Conv2d, cin, cout, k, stride,
+                              padding=k // 2, bias=False)
 
 
 def _affine(x, a, b):
@@ -127,7 +130,7 @@ class ResnetEncoder(nn.Module):
         self.in_channels = in_channels
         self.normalize_input = normalize_input
         bottleneck = depth > 34
-        self.conv1 = nn.Conv2d(in_channels, 64, 7, 2, 3, bias=False)
+        self.conv1 = _conv(in_channels, 64, 7, 2)
         self.bn1 = BatchNorm(64)
         cin = 64
         for si, (width, n) in enumerate(zip((64, 128, 256, 512),

@@ -44,3 +44,16 @@ def project_3d(points: torch.Tensor, K: torch.Tensor, T: torch.Tensor,
     scale = torch.tensor([W - 1, H - 1], dtype=points.dtype,
                          device=points.device)
     return (xy / scale - 0.5) * 2.0
+
+
+def cat_xy(depth: torch.Tensor, inv_K: torch.Tensor) -> torch.Tensor:
+    """Normalized XYZ maps of the refiner's pseudo-3D input (reference
+    layers.py:189-201, `fusiondepth_tpu/ops/geometry.py:60-70`): the
+    backprojection of backproject_depth, then x / 30, y / 2,
+    (z - 40) / 40. depth (B, H, W[, 1]) -> (B, H, W, 3)."""
+    pts = backproject_depth(depth, inv_K)
+    norm = torch.tensor([30.0, 2.0, 40.0], dtype=pts.dtype,
+                        device=pts.device)
+    shift = torch.tensor([0.0, 0.0, 40.0], dtype=pts.dtype,
+                         device=pts.device)
+    return (pts - shift) / norm

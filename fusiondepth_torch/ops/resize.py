@@ -9,7 +9,10 @@
   the in-step smoothness pyramid of the photometric loss. Its static
   matrices reproduce JAX's scale-and-translate triangle kernel, normalized
   per output sample; F.interpolate(antialias=True) weighs the borders
-  differently.
+  differently;
+- `resize_linear_np`: the host-side resize of one (H, W) numpy map with
+  OpenCV's cv2.resize(INTER_LINEAR) semantics, where the JAX package calls
+  cv2 (GDC, its evaluation and the GDC cache reader).
 """
 
 from __future__ import annotations
@@ -88,6 +91,24 @@ def resize_bilinear(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
     """Bilinear resize of (..., H, W) to (..., height, width), torch
     align_corners=False without antialias."""
     return _resize("bilinear", x, height, width)
+
+
+def resize_linear_np(arr: np.ndarray, height: int, width: int) -> np.ndarray:
+    """(H, W) float map -> (height, width) float32, as cv2.resize(arr,
+    (width, height), interpolation=cv2.INTER_LINEAR): half-pixel centres,
+    source coordinate (i + 0.5) * src / dst - 0.5 clamped to the image, two
+    taps per axis, no antialias when shrinking. These are the weights of
+    `interp_matrix`; the products run in float64 and round once."""
+    arr = np.asarray(arr)
+    if arr.ndim != 2:
+        raise ValueError(f"resize_linear_np: expected (H, W), got "
+                         f"{arr.shape}")
+    H, W = arr.shape
+    if (H, W) == (height, width):
+        return arr.astype(np.float32)
+    My = interp_matrix(H, height).astype(np.float64)
+    Mx = interp_matrix(W, width).astype(np.float64)
+    return (My @ arr.astype(np.float64) @ Mx.T).astype(np.float32)
 
 
 def resize_antialias(x: torch.Tensor, height: int,

@@ -1,10 +1,11 @@
-"""Eigen-split evaluation driver (reference evaluate_depth.py:74-501), depth
-branch only. Counterpart of `fusiondepth_tpu/training/eval_driver.py`:
-loads weights, runs the model over the eval split (with the flip
-post-process when asked), applies the protocol of
-`training/evaluation.py` (a copy of the JAX package's) and prints the
-7-metric row. The stage-2 modes (refine_2d, eval_gdc) and the visualize,
-per_semantic and benchmark-export outputs are not ported yet and raise.
+"""Eigen-split evaluation driver (reference evaluate_depth.py:74-501).
+Counterpart of `fusiondepth_tpu/training/eval_driver.py`: loads weights,
+runs the model over the eval split (the stage-1 depth branch, or with
+refine_2d the stage-2 refine pipeline; with the flip post-process when
+asked), optionally runs GDC on each predicted frame (eval_gdc), applies
+the protocol of `training/evaluation.py` (a copy of the JAX package's)
+and prints the 7-metric row. The visualize, per_semantic and
+benchmark-export outputs are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -64,6 +65,86 @@ def predict_disparities(cfg: Config, dataset,
     return disps, gts
 
 
+def predict_refined_disparities(cfg: Config, dataset, device=None):
+    """Stage-2 (refine2d) inference for evaluation (reference
+    evaluate_depth.py:197-233): frozen stage-1 forward, pseudo-3D maps,
+    refine decoder. The stage-1 weights come from
+    cfg.refine_load_weights_folder, the refine weights from
+    cfg.load_weights_folder (a folder written by `Refiner.save`). With
+    cfg.post_process the mirrored batch goes through the whole refine
+    pipeline too (reference evaluate_depth.py:168-170, 240-242)."""
+    from fusiondepth_torch.training.refiner_driver import INFER_KEYS, \
+        Refiner
+
+    refiner = Refiner(cfg, device=device)
+    if cfg.load_weights_folder and os.path.exists(cfg.load_weights_folder):
+        refiner.load(cfg.load_weights_folder)
+    else:
+        print(f"WARNING: load_weights_folder {cfg.load_weights_folder!r} "
+              "not found — evaluating the random refine init")
+    loader = DataLoader(dataset, cfg.eval_batch_size, shuffle=False)
+    disps, gts = [], []
+    for batch in loader:
+        db = device_batch(batch, refiner.device, INFER_KEYS, refiner.dtype)
+        disp = refiner.infer(db)[..., 0].cpu().numpy()
+        if cfg.post_process:
+            # every input but K is an NHWC image: W is axis -2
+            flipped = {k: (v if k == "K" else torch.flip(v, dims=(-2,)))
+                       for k, v in db.items()}
+            disp_f = refiner.infer(flipped)[..., 0].cpu().numpy()
+            disp = flip_postprocess(disp, disp_f[:, :, ::-1])
+        disps.extend(disp)
+        gts.extend(batch.get("depth_gt", []))
+    return disps, gts
+
+
+def gdc_on_disparities(cfg: Config, dataset, disps, device=None):
+    """Online GDC at evaluation (reference evaluate_depth.py:387-405): per
+    frame, median-scale the predicted depth to the K-beam LiDAR inside the
+    eigen crop, run GDC with the frame's calibration on the card, and
+    convert back to disparity at the prediction's size. A frame whose
+    correction is not finite keeps its prediction (the reference's bare
+    try/except)."""
+    from fusiondepth_torch.data.calibration import Calibration
+    from fusiondepth_torch.data.kitti_io import generate_depth_map
+    from fusiondepth_torch.ops.resize import resize_linear_np
+    from fusiondepth_torch.training.gdc_driver import correct_depth, \
+        median_scale_to_beams
+
+    device = resolve_device(device)
+    out = []
+    calib_cache = {}
+    for i, disp in enumerate(disps):
+        folder, idx, side = dataset.parse_line(i)
+        date = folder.split("/")[0]
+        if date not in calib_cache:
+            calib_cache[date] = Calibration.from_file(os.path.join(
+                cfg.data_path, date, "calib_cam_to_cam.txt"))
+        beam_bin = os.path.join(cfg.data_path, folder,
+                                dataset.beam_folder(),
+                                dataset.frame_str(idx) + ".bin")
+        side_cam = {"l": 2, "r": 3}[side]
+        beams = generate_depth_map(os.path.join(cfg.data_path, date),
+                                   beam_bin, side_cam, vel_depth=True)
+        gh, gw = beams.shape
+        d = np.asarray(disp, np.float32)
+        depth = 1.0 / np.maximum(resize_linear_np(d, gh, gw), 1e-12)
+        depth = median_scale_to_beams(depth, beams)
+        corrected, info = correct_depth(depth, beams, calib_cache[date],
+                                        device)
+        if info["overflow"]:
+            print(f"WARNING: GDC capacity overflow at frame {i}: "
+                  f"n_pl={info['n_pl']} n_l={info['n_l']} — points beyond "
+                  "capacity were dropped", flush=True)
+        if not np.isfinite(corrected).all():
+            print(f"GDC failed at frame {i}; keeping uncorrected")
+            out.append(disp)
+        else:
+            out.append(resize_linear_np(1.0 / np.maximum(corrected, 1e-6),
+                                        d.shape[0], d.shape[1]))
+    return out
+
+
 def _kitti_eval_dataset(cfg: Config):
     from fusiondepth_torch.data.kitti_dataset import (
         KITTIDepthDataset,
@@ -85,8 +166,7 @@ def _kitti_eval_dataset(cfg: Config):
 
 
 def evaluate(cfg: Config, dataset=None, device=None):
-    unported = [f for f in ("refine_2d", "eval_gdc", "visualize",
-                            "per_semantic") if getattr(cfg, f)]
+    unported = [f for f in ("visualize", "per_semantic") if getattr(cfg, f)]
     if cfg.eval_split == "benchmark":
         unported.append("eval_split=benchmark")
     if unported:
@@ -99,6 +179,8 @@ def evaluate(cfg: Config, dataset=None, device=None):
     if cfg.ext_disp_to_eval:
         disps = list(np.load(cfg.ext_disp_to_eval, allow_pickle=True))
         gts = [dataset[i]["depth_gt"] for i in range(len(dataset))]
+    elif cfg.refine_2d:
+        disps, gts = predict_refined_disparities(cfg, dataset, device=device)
     else:
         disps, gts = predict_disparities(cfg, dataset, device=device)
 
@@ -112,6 +194,9 @@ def evaluate(cfg: Config, dataset=None, device=None):
     if cfg.no_eval:
         print("-> Evaluation disabled. Done.")
         return None
+
+    if cfg.eval_gdc:
+        disps = gdc_on_disparities(cfg, dataset, disps, device=device)
 
     if cfg.eval_stereo:
         print("   Stereo evaluation - disabling median scaling, "

@@ -7,20 +7,28 @@ Counterpart of the planes formulation of
 B, C, H, W); the 8 (frame, scale) warps run as one call of the warp
 kernel; the identity reprojection is computed once (it is
 scale-invariant at full-res warping, reference trainer.py:515-528); the
-per-pixel automask min runs over a leading candidate axis.
+per-pixel automask min runs over a leading candidate axis. With SSIM on,
+the SSIM + L1 maps come from the fused reprojection-loss op
+(`kernels/reproj.py`), whatever `pallas_reproj` says: the JAX package
+gates its Pallas kernel behind that flag because the kernel needs H to be
+a multiple of 16 (photometric.py:218-237), and the CUDA kernel takes any
+H, W >= 2. The op's plain version, which CPU tensors take, is
+`ops/planes.py::reprojection_loss_planes`; with no_ssim the L1 maps come
+from it directly.
 
 Not ported yet, and refused with NotImplementedError rather than computed
-some other way: the v1_multiscale reference formulation, predictive_mask,
-use_stereo, and pallas_reproj (the fused reprojection-loss kernel).
+some other way: the v1_multiscale reference formulation, predictive_mask
+and use_stereo.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
 from fusiondepth_torch.config import Config
+from fusiondepth_torch.kernels import reproj as reproj_kernel
 from fusiondepth_torch.ops.depth import disp_to_depth
 from fusiondepth_torch.ops.geometry import backproject_depth, project_3d
 from fusiondepth_torch.ops.losses import si_loss
@@ -37,7 +45,7 @@ from fusiondepth_torch.ops.warp import warp_planes
 def check_supported(cfg: Config) -> None:
     """Raise NotImplementedError for the loss options the port lacks."""
     unported = [f for f in ("v1_multiscale", "predictive_mask",
-                            "use_stereo", "pallas_reproj")
+                            "use_stereo")
                 if getattr(cfg, f)]
     if unported:
         raise NotImplementedError(
@@ -92,6 +100,24 @@ def generate_images_pred(cfg: Config, batch: Dict[str, torch.Tensor],
     return outputs
 
 
+def reprojection_maps(warped: torch.Tensor, sources_p: torch.Tensor,
+                      target_p: torch.Tensor, use_ssim: bool, automask: bool
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The reprojection loss maps of the warps, (n, k, B, H, W), and with
+    `automask` those of the unwarped sources, (n, B, H, W): the fused op
+    with SSIM on, the L1 planes op without."""
+    if use_ssim:
+        reproj_maps = reproj_kernel.reproj_loss(warped, target_p)
+        identity_maps = reproj_kernel.reproj_loss(
+            sources_p[:, None], target_p)[:, 0] if automask else None
+    else:
+        reproj_maps = reprojection_loss_planes(warped, target_p[None, None],
+                                               False)
+        identity_maps = reprojection_loss_planes(
+            sources_p, target_p[None], False) if automask else None
+    return reproj_maps, identity_maps
+
+
 def compute_losses(cfg: Config, batch: Dict[str, torch.Tensor],
                    outputs: Dict[Any, Any],
                    noise: Optional[Sequence[torch.Tensor]] = None,
@@ -111,12 +137,8 @@ def compute_losses(cfg: Config, batch: Dict[str, torch.Tensor],
     sources_p = outputs["sources_planes"]
     target_p = outputs["target_planes"]
 
-    reproj_maps = reprojection_loss_planes(warped, target_p[None, None],
-                                           use_ssim)        # (n, k, B, H, W)
-    identity_maps = None
-    if automask:
-        identity_maps = reprojection_loss_planes(
-            sources_p, target_p[None], use_ssim)           # (n, B, H, W)
+    reproj_maps, identity_maps = reprojection_maps(
+        warped, sources_p, target_p, use_ssim, automask)
     pyr = build_color_pyramid(cfg, target_p)
 
     total = 0.0

@@ -11,7 +11,9 @@ most four additions: 1e-7); the convs sum at most 9 * 24 float32 products
 in another order than the Pallas dots: atol 1e-5 for values and input
 gradients, 1e-4 for the weight and bias gradients (sums over 512 pixels);
 the warp against warp_planes_xla in float64: 1e-12; against the Pallas
-kernel in float32: 1e-5.
+kernel in float32: 1e-5; the reprojection loss against its Pallas kernel
+in float32 (the bounds of tests/test_pallas_reproj.py): 5e-6 on the map,
+5e-5 on the warped cotangent.
 """
 
 import numpy as np
@@ -27,11 +29,14 @@ from fusiondepth_tpu.ops.pallas_fold_conv import (
     fold_conv3x3_zero_pallas,
 )
 from fusiondepth_tpu.ops.pallas_pool import max_pool_3x3s2_pallas
+from fusiondepth_tpu.ops.pallas_reproj import reproj_loss_pallas
+from fusiondepth_tpu.ops.planes import box3 as jax_box3
 from fusiondepth_tpu.ops.pooling import _pool_even
 from fusiondepth_tpu.ops.pooling import max_pool_3x3s2 as jax_pool
 from fusiondepth_tpu.ops.warp import warp_planes as jax_warp_planes
 from fusiondepth_tpu.ops.warp import warp_planes_xla
-from fusiondepth_torch.kernels import LAUNCHES, build, conv3x3, pool, warp
+from fusiondepth_torch.kernels import LAUNCHES, build, conv3x3, knn, pool, \
+    reproj, warp
 from fusiondepth_torch.ops.pooling import max_pool_3x3s2
 from fusiondepth_torch.ops.warp import warp_planes, warp_planes_plain
 
@@ -149,8 +154,12 @@ def test_cpu_path_launches_nothing():
     coords = torch.rand(1, 2, 1, 8, 8, requires_grad=True)
     out = out + warp.warp(coords[:, :1] * 7, coords[:, 1:] * 7,
                           torch.rand(1, 1, 3, 8, 8)).sum()
+    warped = torch.rand(2, 1, 1, 3, 8, 8, requires_grad=True)
+    out = out + reproj.reproj_loss(warped, torch.rand(1, 3, 8, 8)).sum()
     out.backward()
     assert x.grad is not None and coords.grad is not None
+    assert warped.grad is not None
+    assert knn.knn(torch.rand(20, 3), 4).shape == (20, 4)
     assert LAUNCHES == before
 
 
@@ -190,6 +199,14 @@ def test_cuda_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="expected cuda"):
         warp.warp_bwd(ix, ix, src, torch.zeros(1, 1, 1, 3, 8, 8,
                                                 device="meta"))
+    w6 = torch.zeros(2, 1, 1, 3, 8, 8, device="meta")
+    with pytest.raises(ValueError, match="expected cuda"):
+        reproj.reproj_loss(w6, src[0])
+    with pytest.raises(ValueError, match="expected cuda"):
+        reproj.reproj_bwd(w6, src[0], torch.zeros(2, 1, 1, 8, 8,
+                                                  device="meta"))
+    with pytest.raises(ValueError, match="expected cuda"):
+        knn.knn(torch.zeros(20, 3, device="meta"), 4)
 
 
 # ---- backward kernels (plain versions) against the JAX VJPs ----
@@ -204,8 +221,8 @@ def test_pool_backward_splits_ties_like_jax():
     x[0, 8, 6, 2] = 7.5
     g = r.standard_normal((2, 8, 6, 8)).astype(np.float32)
     _, vjp_even = jax.vjp(_pool_even, jnp.asarray(x))
-    _, vjp_pallas = jax.vjp(lambda a: max_pool_3x3s2_pallas(a, True),
-                            jnp.asarray(x))
+    _, vjp_pallas = jax.vjp(
+        jax.jit(lambda a: max_pool_3x3s2_pallas(a, True)), jnp.asarray(x))
     xt = _nchw(x).requires_grad_(True)
     max_pool_3x3s2(xt).backward(_nchw(g))
     got = _nhwc(xt.grad)
@@ -239,8 +256,8 @@ def test_reflect_conv_backward_matches_pallas_vjp(elu):
             (fold(a0, F), fold(a1, F)), (k[:, :, :C0], k[:, :, C0:]), bias,
             F, (C0, C1), elu, True)
 
-    _, vjp = jax.vjp(f, jnp.asarray(x0), jnp.asarray(x1), jnp.asarray(w),
-                     jnp.asarray(b))
+    _, vjp = jax.vjp(jax.jit(f), jnp.asarray(x0), jnp.asarray(x1),
+                     jnp.asarray(w), jnp.asarray(b))
     dx0, dx1, dw, db = (np.asarray(a) for a in vjp(fold(jnp.asarray(g), F)))
     t0, t1 = _nchw(x0).requires_grad_(True), _nchw(x1).requires_grad_(True)
     tw = _oihw(w).requires_grad_(True)
@@ -270,7 +287,7 @@ def test_zero_act_conv_backward_matches_pallas_vjp(act):
         return fold_conv3x3_zero_pallas(fold(a, F), k, jnp.tile(sc, F),
                                         jnp.tile(sh, F), F, C, act, True)
 
-    _, vjp = jax.vjp(f, *(jnp.asarray(v) for v in (x, w, s, t)))
+    _, vjp = jax.vjp(jax.jit(f), *(jnp.asarray(v) for v in (x, w, s, t)))
     dx, dw, ds, dt = (np.asarray(a) for a in vjp(fold(jnp.asarray(g), F)))
     tx, tw = _nchw(x).requires_grad_(True), _oihw(w).requires_grad_(True)
     ts = torch.from_numpy(s).requires_grad_(True)
@@ -365,8 +382,8 @@ def test_warp_matches_pallas_banded_kernel_in_band():
     coordinates clamped at the border get none on either side."""
     grids, src, g = _warp_case(2, 2, 1, 3, 32, 128, spread=12.0, seed=8,
                                dtype=np.float32)
-    want, vjp = jax.vjp(lambda gr: jax_warp_planes(
-        jnp.asarray(src), gr, use_pallas=True, interpret=True),
+    want, vjp = jax.vjp(jax.jit(lambda gr: jax_warp_planes(
+        jnp.asarray(src), gr, use_pallas=True, interpret=True)),
         jnp.asarray(grids))
     dgrid = np.asarray(vjp(jnp.asarray(g))[0])
     tg = torch.from_numpy(grids).requires_grad_(True)
@@ -381,3 +398,64 @@ def test_warp_refuses_sources_that_need_grad():
     ix = torch.zeros(1, 1, 1, 4, 4)
     with pytest.raises(ValueError, match="sources get no gradient"):
         warp.warp(ix, ix, torch.zeros(1, 1, 3, 4, 4, requires_grad=True))
+
+
+# ---- the fused reprojection loss (plain version) against its Pallas kernel
+
+def _reproj_data(shape=(2, 2, 1, 3, 48, 128)):
+    """tests/test_pallas_reproj.py's data."""
+    rng = np.random.RandomState(0)
+    n, k, B, C, H, W = shape
+    warped = rng.rand(n, k, B, C, H, W).astype(np.float32)
+    target = rng.rand(B, C, H, W).astype(np.float32)
+    return warped, target
+
+
+def _pallas_reproj(warped, target):
+    t = jnp.asarray(target)
+    return lambda w: reproj_loss_pallas(w, t, jax_box3(t), jax_box3(t * t),
+                                        True)
+
+
+def test_reproj_matches_pallas_kernel_and_its_vjp():
+    warped, target = _reproj_data()
+    want, vjp = jax.vjp(jax.jit(_pallas_reproj(warped, target)),
+                        jnp.asarray(warped))
+    w = torch.from_numpy(warped).requires_grad_(True)
+    got = reproj.reproj_loss(w, torch.from_numpy(target))
+    assert got.shape == want.shape == (2, 2, 1, 48, 128)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=5e-6, rtol=0)
+    g = np.random.RandomState(1).standard_normal(want.shape).astype(
+        np.float32)
+    got.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(w.grad.numpy(), np.asarray(vjp(g)[0]),
+                               atol=5e-5, rtol=0)
+    assert np.array_equal(
+        reproj.reproj_bwd(torch.from_numpy(warped), torch.from_numpy(target),
+                          torch.from_numpy(g)).numpy(), w.grad.numpy())
+
+
+def test_reproj_identity_call_matches_pallas_kernel():
+    """The automask call: the sources as a k=1 candidate axis."""
+    warped, target = _reproj_data()
+    sources = warped[:, 0]
+    want = _pallas_reproj(sources, target)(jnp.asarray(sources[:, None]))
+    got = reproj.reproj_loss(torch.from_numpy(sources[:, None].copy()),
+                             torch.from_numpy(target))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-6,
+                               rtol=0)
+
+
+def test_reproj_refuses_what_the_kernel_does_not_take():
+    """Shapes the kernel cannot take are refused before any launch: a
+    1-pixel side (no reflect padding) and a target that does not fit."""
+    w = torch.zeros(1, 1, 2, 3, 1, 8, device="meta")
+    with pytest.raises(ValueError, match="H, W >= 2"):
+        reproj._check("reproj", w, torch.zeros(2, 3, 1, 8, device="meta"))
+    with pytest.raises(ValueError, match="does not fit"):
+        reproj._check("reproj", torch.zeros(1, 1, 2, 3, 4, 8),
+                      torch.zeros(1, 3, 4, 8))
+    with pytest.raises(ValueError, match="no gradient"):
+        reproj.reproj_loss(torch.zeros(1, 1, 1, 3, 4, 8),
+                           torch.zeros(1, 3, 4, 8, requires_grad=True))

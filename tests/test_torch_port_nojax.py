@@ -1,6 +1,8 @@
 """The port must run where JAX is not installed: importing every module of
-fusiondepth_torch, its CLIs, its trainer and chip_smoke.py loads no module
-of jax, jaxlib, flax or the JAX package (fusiondepth_tpu). Checked in a
+fusiondepth_torch (stage 2 included: gdc, the KNN and reprojection
+kernels, the refiner and its drivers), its CLIs (the trainer, inference,
+evaluation, inf_gdc and refiner) and chip_smoke.py loads no module of
+jax, jaxlib, flax or the JAX package (fusiondepth_tpu). Checked in a
 fresh interpreter, since this test process has imported JAX already
 (tests/conftest.py)."""
 
@@ -20,7 +22,14 @@ for m in mods:
 import fusiondepth_torch.trainer
 import fusiondepth_torch.inf_depth_map
 import fusiondepth_torch.evaluate_depth
+import fusiondepth_torch.inf_gdc
+import fusiondepth_torch.refiner
 import fusiondepth_torch.training.trainer
+import fusiondepth_torch.training.refiner_driver
+import fusiondepth_torch.training.gdc_driver
+import fusiondepth_torch.gdc.gdc
+import fusiondepth_torch.kernels.knn
+import fusiondepth_torch.kernels.reproj
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax",
@@ -35,5 +44,5 @@ def test_port_imports_no_jax():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     n, verdict = r.stdout.strip().splitlines()[-1].split(" ", 1)
-    assert int(n) >= 30, r.stdout  # every module of the port was imported
+    assert int(n) >= 58, r.stdout  # every module of the port was imported
     assert verdict == "clean", r.stdout

@@ -34,7 +34,7 @@ from fusiondepth_torch.training.eval_driver import predict_disparities
 from fusiondepth_torch.training.infer_driver import Infer, device_batch
 
 from test_torch_port_models import few_torch_threads  # noqa: F401
-from test_torch_port_models import random_variables
+from test_torch_port_models import jit, random_variables
 
 B, H, W = 2, 64, 96
 # the JAX Config and the port's from the same keyword arguments
@@ -87,7 +87,7 @@ def jax_side():
 
         # jitted: one compile of the whole forward costs less on a CPU
         # than the eager per-op compiles (about 17 s against 38 s)
-        fwd_fn = jax.jit(lambda b: nets.forward_depth(v, b, train=False)[0])
+        fwd_fn = jit(lambda b: nets.forward_depth(v, b, train=False)[0])
 
         def disp(b):
             out = fwd_fn({k: jnp.asarray(x) for k, x in b.items()})
@@ -149,7 +149,7 @@ def test_forward_depth_variant_matches_jax():
             mask = out.pop("predictive_mask", {})
             return out, mask
 
-        want = jax.tree.map(np.asarray, jax.jit(fwd)(
+        want = jax.tree.map(np.asarray, jit(fwd)(
             {k: jnp.asarray(x) for k, x in batch.items()}))
     nets = FusionNets(cfg, device=CPU)
     nets.load_state_dict(from_jax_variables({k: v[k] for k in NETS

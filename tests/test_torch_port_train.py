@@ -14,8 +14,11 @@ Held against the JAX side:
   products to float32 even under x64 (tests/test_torch_port_ops.py), so
   1e-9 on the loss is not reached: the difference measured here is
   5.5e-9 on a loss of 0.41;
-- the parameters after one step of the port's train_step against JAX
-  make_train_step with optax Adam, to atol 1e-6: an Adam step moves a
+- the parameters after one step of the port's train_step against the
+  update of JAX make_train_step (with grad_accum_steps 1 it is the JAX
+  optimizer's tx.update and optax.apply_updates on make_loss_fn's
+  gradients, applied here to those gradients so that the loss is traced
+  once), to atol 1e-6: an Adam step moves a
   parameter by lr * g / (|g| + 1e-8), lr = 2.5e-5, so where a gradient
   leaf is near 0 its 1e-9 agreement allows up to 2.5e-6 of difference in
   the step (1.2e-7 is measured here); the BN statistics to 1e-9.
@@ -27,6 +30,7 @@ import copy
 import os
 
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -36,10 +40,8 @@ import jax.numpy as jnp
 from fusiondepth_tpu.config import Config as JaxConfig
 from fusiondepth_tpu.models.fusion import FusionNets as JaxFusionNets
 from fusiondepth_tpu.training.train_state import (
-    TrainState,
     make_loss_fn,
     make_optimizer as jax_make_optimizer,
-    make_train_step,
     split_variables,
 )
 from fusiondepth_torch.config import Config
@@ -61,7 +63,7 @@ from fusiondepth_torch.training.train_state import (
 from fusiondepth_torch.training.trainer import TRAIN_KEYS, Trainer
 
 from test_torch_port_models import few_torch_threads  # noqa: F401
-from test_torch_port_models import random_variables
+from test_torch_port_models import jit, random_variables
 
 B, H, W = 2, 64, 96
 KW = dict(num_layers=18, height=H, width=W, batch_size=B,
@@ -107,24 +109,35 @@ def jax_side():
         key = jax.random.PRNGKey(42)
         loss_f = make_loss_fn(cfg, nets)
         tx = jax_make_optimizer(cfg, STEPS_PER_EPOCH)
-        step = make_train_step(cfg, nets, tx)
+
+        # the training-mode forward that make_loss_fn runs, read out of
+        # the loss's own trace (one compile of one forward)
+        forward, seen = nets.forward, {}
+
+        def recording_forward(*args, **kwargs):
+            seen["out"], updates = forward(*args, **kwargs)
+            return seen["out"], updates
+
+        def loss_and_forward(params, stats, batch, key):
+            nets.forward = recording_forward
+            try:
+                loss, aux = loss_f(params, stats, batch, key)
+            finally:
+                del nets.forward
+            out = seen.pop("out")
+            fwd = [out[("disp", s)] for s in cfg.scales]
+            return loss, (aux, fwd + [out[k] for k in POSE_KEYS])
 
         def run(params, stats, batch, key):
-            variables = {k: {"params": params[k],
-                             **({"batch_stats": stats[k]} if stats[k]
-                                else {})} for k in params}
-            out, _ = nets.forward(variables, batch, train=True)
-            fwd = [out[("disp", s)] for s in cfg.scales]
-            fwd += [out[k] for k in POSE_KEYS]
-            (loss, (losses, new_stats)), grads = jax.value_and_grad(
-                loss_f, has_aux=True)(params, stats, batch, key)
-            state = TrainState(params=params, batch_stats=stats,
-                               opt_state=tx.init(params),
-                               step=jnp.zeros((), jnp.int32))
-            new_state, _ = step(state, batch, key)
-            return fwd, loss, grads, new_stats, new_state.params
+            (loss, ((losses, new_stats), fwd)), grads = jax.value_and_grad(
+                loss_and_forward, has_aux=True)(params, stats, batch, key)
+            # make_train_step's update (grad_accum_steps 1) from these
+            # gradients, without tracing the loss a second time
+            updates, _ = tx.update(grads, tx.init(params), params)
+            return fwd, loss, grads, new_stats, optax.apply_updates(
+                params, updates)
 
-        out = jax.jit(run)(params, stats,
+        out = jit(run)(params, stats,
                            {k: jnp.asarray(x) for k, x in batch.items()},
                            key)
         fwd, loss, grads, new_stats, new_params = jax.tree.map(np.asarray,
@@ -191,7 +204,7 @@ def test_forward_train_matches_jax_f64(jax_side):
 def test_loss_grads_and_one_adam_step_match_jax_f64(jax_side):
     """One train_step of the port: its loss and every gradient leaf
     against make_loss_fn's, then the parameters and BN statistics after
-    the Adam update against make_train_step's."""
+    the Adam update against make_train_step's update."""
     nets = port_nets(jax_side)
     cfg = nets.cfg
     opt, sched = make_optimizer(cfg, nets, STEPS_PER_EPOCH)
@@ -272,7 +285,8 @@ def test_trainer_steps_checkpoint_and_infer_round_trip(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    dict(pallas_reproj=True), dict(v1_multiscale=True), dict(remat=True),
+    dict(compute_dtype="bfloat16"), dict(v1_multiscale=True),
+    dict(remat=True),
     dict(use_mesh=True), dict(predictive_mask=True,
                               disable_automasking=True),
     dict(use_stereo=True), dict(pose_model_type="posecnn")])
@@ -282,6 +296,39 @@ def test_unported_options_raise(flag, tmp_path):
     with pytest.raises(NotImplementedError):
         Trainer(cfg, train_dataset=SyntheticDataset(cfg, length=2),
                 device="cpu")
+
+
+def test_pallas_reproj_trains_through_the_plain_version_on_the_cpu():
+    """The loss takes the fused reprojection-loss op with pallas_reproj
+    off or on (the flag is the JAX package's, accepted for parity), and
+    the op's wrapper takes its plain version for CPU tensors: both
+    settings call the wrapper, forward and backward, give the same loss
+    and gradients, and launch no kernel."""
+    from fusiondepth_torch.kernels import LAUNCHES, reset_launches
+    from fusiondepth_torch.kernels import reproj as reproj_kernel
+
+    cfg = Config(**{**KW, "compute_dtype": "float32"})
+    batch = device_batch(make_inputs(), CPU, TRAIN_KEYS, torch.float32)
+    noise = [torch.zeros(len(SRC), B, H, W) for _ in range(4)]
+    results = []
+    for fused in (False, True):
+        nets = FusionNets(cfg.replace(pallas_reproj=fused), device=CPU)
+        reset_launches()
+        calls = []
+        with pytest.MonkeyPatch.context() as mp:
+            for attr in ("reproj_fwd", "reproj_bwd"):
+                def counted(*a, _f=getattr(reproj_kernel, attr), _n=attr):
+                    calls.append(_n)
+                    return _f(*a)
+                mp.setattr(reproj_kernel, attr, counted)
+            loss, _ = loss_fn(nets.cfg, nets, batch, noise=noise)
+            loss.backward()
+        assert sorted(calls) == ["reproj_bwd", "reproj_fwd", "reproj_fwd"]
+        assert not any(LAUNCHES.values())
+        results.append((loss.item(), [p.grad for p in nets.parameters()]))
+    assert results[0][0] == pytest.approx(results[1][0], rel=1e-6)
+    for a, b in zip(results[0][1], results[1][1]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-7)
 
 
 def test_entry_points_need_a_card_unless_told_cpu(monkeypatch, tmp_path):
