@@ -54,10 +54,14 @@ order, it:
    cdist + topk, two calls) over the calls of a batch-12 train step (the
    KNN: one GDC frame), the steps through the kernels against all-plain,
    and the inference forward, with CUDA events after warm-up, each pair in
-   the order plain, kernel, kernel, plain;
+   the order plain, kernel, kernel, plain; checks that two wgrad launches
+   on a batch-12 layer1 call are bit-equal;
 9. prints the card's name and power limit (nvidia-smi), then one JSON
    line {"kernels": [...]} of the 11 kernels, each with the launches of
-   the path that drives it, then, last, {"ok": true, "device": {...}}.
+   the path that drives it and its bound (the conv rows at the 3xTF32
+   rate, see PEAK_TF32_S, with their achieved TFLOP/s), then, last,
+   {"ok": true, "device": {...}}. After the build it prints what ptxas
+   reported for the two conv kernels (registers, spills).
 
 Any failed check raises, so the exit code is not 0.
 """
@@ -122,8 +126,18 @@ FORWARD_ATOL = 1e-4
 STEP_LOSS_REL, STEP_GRAD_REL, STEP_NOISE_X = 1e-5, 1e-3, 3.0
 STEP_GRAD_CAP = 0.1
 NOISE_STEPS = 3
-# published H100 SXM peaks (NVIDIA data sheet): HBM rate, fp32 CUDA cores
-PEAK_BYTES_S, PEAK_FP32_S = 3.35e12, 67e12
+# published H100 SXM peaks (NVIDIA data sheet): HBM rate, fp32 CUDA cores,
+# dense TF32 tensor cores
+PEAK_BYTES_S, PEAK_FP32_S, PEAK_TF32_S = 3.35e12, 67e12, 495e12
+# The conv rows' operation bound: an fp32-accurate conv on this card takes
+# at least 3 TF32 products per multiply-add on the tensor cores (3xTF32:
+# each operand split into two TF32 parts, the small x small product
+# dropped), so 3 x operations / PEAK_TF32_S, 165 TFLOP/s of fp32-accurate
+# products; that is below the CUDA cores' 1 x operations / PEAK_FP32_S and
+# so the least time whatever implements it. The other rows keep the fp32
+# rate.
+CONV_KERNELS = ("conv3x3_reflect", "conv3x3_zero_act", "conv3x3_dgrad",
+                "conv3x3_wgrad")
 
 PALLAS = "fusiondepth_tpu/ops/"
 SRC = "fusiondepth_torch/kernels/csrc/"
@@ -417,6 +431,20 @@ def check_kernels(calls):
     return err
 
 
+def wgrad_repeats(calls):
+    """Two wgrad launches on the first layer1 call of a batch-12 step give
+    the same bits: the split partials are summed in a fixed order, with no
+    atomics."""
+    layer1 = (TRAIN_BATCH, 64, HEIGHT // 4, WIDTH // 4)
+    args, kwargs = next((a, k) for n, a, k in calls if n == "conv3x3_wgrad"
+                        and tuple(a[1].shape) == layer1)
+    first = conv3x3.conv3x3_wgrad(*args, **kwargs)
+    same = torch.equal(first, conv3x3.conv3x3_wgrad(*args, **kwargs))
+    emit(check="wgrad_bit_equal_repeat", shape=list(layer1),
+         act=kwargs.get("scale") is not None, bit_equal=same)
+    require(same, "two wgrad launches on one layer1 call differ")
+
+
 def emit_checks(err, calls, edges, path):
     """One line per kernel held: its largest error, and on how many calls
     of the path and edge cases it was held."""
@@ -523,14 +551,25 @@ def library_call(name, args, kwargs):
     return None
 
 
+def ops_ms(name, args, kwargs) -> float:
+    """The least time for a call's operations: 3 TF32 products per
+    multiply-add for a conv (see CONV_KERNELS), fp32 operations at the
+    fp32 rate otherwise."""
+    flops = call_flops(name, args, kwargs)
+    if name in CONV_KERNELS:
+        return 3 * flops / PEAK_TF32_S * 1e3
+    return flops / PEAK_FP32_S * 1e3
+
+
 def time_kernels(calls):
     """Per kernel, summed over its calls: kernel ms, plain ms, the library
     call's ms and the kernel's ms over the calls the library call covers,
-    and the bound (bytes over the HBM rate or fp32 operations over the
-    fp32 rate, the larger, call by call)."""
+    the bound (bytes over the HBM rate or `ops_ms`, the larger, call by
+    call), and for the convs the achieved TFLOP/s (call_flops over the
+    kernel's ms)."""
     t = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, library_of_ms=0.0,
                     library_calls=0, calls=0, bound_ms=0.0, bytes_ms=0.0,
-                    ops_ms=0.0) for name in KERNELS}
+                    ops_ms=0.0, flops=0.0) for name in KERNELS}
     for name, args, kwargs in calls:
         mod, attr, plain, _, _ = KERNELS[name]
         fn = getattr(mod, attr)
@@ -542,7 +581,8 @@ def time_kernels(calls):
         r["calls"] += 1
         out = _tensors(plain(*args, **kwargs))
         b_ms = call_bytes(args, kwargs, out) / PEAK_BYTES_S * 1e3
-        o_ms = call_flops(name, args, kwargs) / PEAK_FP32_S * 1e3
+        o_ms = ops_ms(name, args, kwargs)
+        r["flops"] += call_flops(name, args, kwargs)
         r["bytes_ms"] += b_ms
         r["ops_ms"] += o_ms
         r["bound_ms"] += max(b_ms, o_ms)
@@ -553,9 +593,11 @@ def time_kernels(calls):
             r["library_ms"] += lib_ms
             r["library_of_ms"] += k
             r["library_calls"] += 1
-    for r in t.values():
+    for name, r in t.items():
         r["bound_by"] = "bytes" if r["bytes_ms"] >= r["ops_ms"] \
             else "operations"
+        r["tflops"] = r["flops"] / r["ms"] / 1e9 if name in CONV_KERNELS \
+            and r["ms"] else None
         if not r["library_calls"]:
             r["library_ms"] = r["library_of_ms"] = None
     return t
@@ -872,6 +914,7 @@ def train_phase(dev, tmp):
     trainer.nets.zero_grad(set_to_none=True)
     err_big = check_kernels(calls)
     emit_checks(err_big, calls, [], "train_batch12")
+    wgrad_repeats(calls)
     err = {k: max(e, err_big.get(k, 0.0)) for k, e in err.items()}
     ktimes = time_kernels(calls)
     del calls
@@ -1184,6 +1227,11 @@ def main() -> int:
     lib = build.build()
     build.load()
     emit(phase="build", seconds=time.perf_counter() - t0, library=lib.name)
+    # what ptxas reported for the two conv kernels' instantiations
+    emit(phase="ptxas", source=SRC + "conv3x3.cu", kernels=[
+        r for r in build.ptxas_report("conv3x3.cu")
+        if "conv3x3_fwd_kernel" in r["kernel"]
+        or "conv3x3_wgrad_kernel" in r["kernel"]])
 
     errs, launches, times = [], {}, {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1219,7 +1267,7 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-            "library_of_ms": r["library_of_ms"],
+            "library_of_ms": r["library_of_ms"], "tflops": r["tflops"],
             "calls_per_step": r["calls"], "path": KERNEL_PATH[name],
             "launches_by_path": {p: c[name] for p, c in launches.items()}})
     kernels[-1]["cdist_topk_ms"] = times["knn"]["cdist_topk_ms"]

@@ -10,6 +10,10 @@ imported.
 
 There is no fallback: a missing `nvcc` or a failed compile raises, and so
 does a launch whose C entry point returns a CUDA error (see `check`).
+
+Each source is compiled with `-Xptxas -v`; what ptxas reports (registers,
+spills, static shared memory of every kernel) is kept beside the library
+and read back by `ptxas_report`.
 """
 
 from __future__ import annotations
@@ -17,7 +21,9 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import json
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -27,7 +33,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                              "-Xptxas", "-v")
 NVCC_TIMEOUT_S = 900
 
 _P = ctypes.c_void_p
@@ -38,18 +45,19 @@ _I = ctypes.c_int
 SIGNATURES = {
     # x, y, B, C, H, W, stream
     "fd_maxpool3x3s2_fwd": (_P, _P, _I, _I, _I, _I, _P),
-    # x0, C0, x1, C1, w, bias, y, B, H, W, Co, elu, stream
+    # x0, C0, x1, C1, w, bias, y, B, H, W, Co, elu, nt, stream
     "fd_conv3x3_reflect_fwd": (_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I,
-                               _I, _P),
-    # x, C, w, scale, shift, y, B, H, W, Co, stream
-    "fd_conv3x3_zero_act_fwd": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # g, Co, wt, dxp, dx0, C0, dx1, C1, B, H, W, reflect, stream
-    "fd_conv3x3_dgrad": (_P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P),
-    # B, H, W, Co, Ci
-    "fd_conv3x3_wgrad_splits": (_I, _I, _I, _I, _I),
-    # g, Co, x0, C0, x1, C1, scale, shift, part, dw, B, H, W, reflect, stream
+                               _I, _I, _P),
+    # x, C, w, scale, shift, y, B, H, W, Co, nt, stream
+    "fd_conv3x3_zero_act_fwd": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _P),
+    # g, Co, wt, dxp, dx0, C0, dx1, C1, B, H, W, reflect, nt, stream
+    "fd_conv3x3_dgrad": (_P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+                         _P),
+    # g, Co, x0, C0, x1, C1, scale, shift, part, dw, B, H, W, reflect, mw,
+    # splits, stream
     "fd_conv3x3_wgrad": (_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I,
-                         _I, _P),
+                         _I, _I, _I, _P),
     # x, y, g, dx, B, C, H, W, stream
     "fd_maxpool3x3s2_bwd": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # ix, iy, src, out, N, K, B, C, H, W, stream
@@ -97,14 +105,16 @@ def library_path(build_dir: Path = BUILD_DIR) -> Path:
 
 
 def _run_all(cmds):
-    """Run the commands in parallel; raise with every failure's stderr."""
+    """Run the commands in parallel; raise with every failure's output,
+    else return {name: output}."""
     procs = [(name, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True))
              for name, cmd in cmds]
-    failures = []
+    failures, outs = [], {}
     try:
         for name, p in procs:
             out, _ = p.communicate(timeout=NVCC_TIMEOUT_S)
+            outs[name] = out
             if p.returncode != 0:
                 failures.append(f"--- {name} (exit {p.returncode})\n{out}")
     finally:
@@ -114,6 +124,7 @@ def _run_all(cmds):
                 p.wait()
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+    return outs
 
 
 def build(build_dir: Path = BUILD_DIR) -> Path:
@@ -126,13 +137,50 @@ def build(build_dir: Path = BUILD_DIR) -> Path:
     build_dir.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         objs = [Path(tmp) / f"{src.stem}.o" for src in cu]
-        _run_all([(src.name, [nvcc, *COMPILE_FLAGS, "-c", str(src), "-o",
-                              str(obj)]) for src, obj in zip(cu, objs)])
+        outs = _run_all([(src.name, [nvcc, *COMPILE_FLAGS, "-c", str(src),
+                                     "-o", str(obj)])
+                         for src, obj in zip(cu, objs)])
+        _report_path(lib).write_text(json.dumps(outs))
         staged = Path(tmp) / lib.name
         _run_all([("link", [nvcc, *ARCH_FLAGS, "-shared", "-o", str(staged),
                             *map(str, objs)])])
         os.replace(staged, lib)  # atomic: a concurrent builder sees all or none
     return lib
+
+
+def _report_path(lib: Path) -> Path:
+    return lib.with_suffix(".ptxas.json")
+
+
+def ptxas_report(source: str, build_dir: Path = BUILD_DIR):
+    """What ptxas said of each kernel of `source` (a file name under
+    csrc/) when the current library was built: [{"kernel": mangled name,
+    "registers": n, "spill_stores": bytes, "spill_loads": bytes,
+    "static_smem": bytes, "stack": bytes}], in the order compiled."""
+    out = json.loads(_report_path(library_path(build_dir)).read_text())
+    rows = []
+    for line in out.get(source, "").splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            rows.append({"kernel": m.group(1), "registers": None,
+                         "spill_stores": None, "spill_loads": None,
+                         "static_smem": 0, "stack": None})
+            continue
+        if not rows:
+            continue
+        row = rows[-1]
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            row["stack"], row["spill_stores"], row["spill_loads"] = \
+                map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            row["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            row["static_smem"] = int(m.group(1))
+    return rows
 
 
 @functools.cache

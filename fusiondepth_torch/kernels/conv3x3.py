@@ -20,12 +20,16 @@ an autograd Function over these kernels. What JAX leaves to XLA stays in
 tensor ops here: the ELU derivative from the saved output, the bias
 gradient and the backward of the act (dx, d scale, d shift).
 
-All accumulate in fp32 on the CUDA cores and are bound by its issue rate
-(see the note at the top of the source).
+The conv kernels are implicit GEMMs on the tensor cores with 3xTF32
+products (each operand split into two TF32 parts, three products per
+multiply-add, fp32 accumulation: fp32-accurate; see the note at the top of
+the source). `conv_tiles` picks their tiles per call, and `tf32_round` is
+their TF32 rounding in tensor ops, for the tests.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -34,6 +38,84 @@ import torch.nn.functional as F
 from fusiondepth_torch.kernels import LAUNCHES, build, check_cuda_f32, \
     on_card
 from fusiondepth_torch.ops.padding import reflect_pad_hw
+
+
+# The kernels' tiles (csrc/conv3x3.cu): a forward block covers 8 x 32
+# output pixels and takes 8 input channels per K chunk; a wgrad block
+# sums pixel tiles of 2 x 32 for 16 mw output channels and WGRAD_CI[mw]
+# input channels. N_SMS: the H100's streaming multiprocessors.
+TILE_H, TILE_W, CHUNK = 8, 32, 8
+WGRAD_TILE_H = 2
+WGRAD_CI = {1: 32, 2: 32, 4: 16}
+N_SMS = 132
+N_TILES = (8, 16, 32, 64)
+# blocks wanted in a grid: the forward holds <= 85 KB of shared memory a
+# block and the wgrad <= 101 KB, so two blocks of either fit on an SM
+GRID_BLOCKS = 2 * N_SMS
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def pixel_tiles(H: int, W: int, rows: int = TILE_H) -> int:
+    """Pixel tiles of `rows` x TILE_W over an H x W map."""
+    return _cdiv(H, rows) * _cdiv(W, TILE_W)
+
+
+def n_tile(B: int, H: int, W: int, Co: int) -> int:
+    """The forward kernel's N tile (output channels per block) for a
+    (B, Co, H, W) output: the narrowest of N_TILES that covers Co (64 at
+    most), halved while the grid would give fewer than GRID_BLOCKS
+    blocks."""
+    n = next((t for t in N_TILES if t >= Co), N_TILES[-1])
+    while n > N_TILES[0] and \
+            B * pixel_tiles(H, W) * _cdiv(Co, n) < GRID_BLOCKS:
+        n //= 2
+    return n
+
+
+@dataclass(frozen=True)
+class ConvTiles:
+    """The kernels' per-call choice for a 3x3 conv of a (B, Ci, H, W) input
+    into Co channels: `fwd_n` the forward's N tile, `dgrad_n` the dgrad's
+    (over the Ci outputs, on the padded (H + 2, W + 2) domain with the
+    reflect pad), `wgrad_mw` the wgrad block's 16 mw output channels and
+    `wgrad_splits` the runs of its 2 x 32 pixel tiles that the wgrad sums
+    apart (the kernel gives each ceil(tiles / splits) tiles, the last run
+    fewer)."""
+    fwd_n: int
+    dgrad_n: int
+    wgrad_mw: int
+    wgrad_splits: int
+
+
+def conv_tiles(B: int, H: int, W: int, Ci: int, Co: int,
+               reflect: bool = False) -> ConvTiles:
+    """Tiles and splits of the three conv kernels for one call (see
+    ConvTiles). The wgrad block takes as many output channels as Co fills
+    (16, 32 or 64); its pixel tiles are cut into contiguous runs so that
+    the grid holds about GRID_BLOCKS blocks, none of them empty."""
+    pad = 2 if reflect else 0
+    mw = 4 if Co > 32 else (2 if Co > 16 else 1)
+    pairs = _cdiv(Co, 16 * mw) * _cdiv(Ci, WGRAD_CI[mw])
+    n_pix = B * pixel_tiles(H, W, WGRAD_TILE_H)
+    want = min(max(1, _cdiv(GRID_BLOCKS, pairs)), n_pix)
+    return ConvTiles(fwd_n=n_tile(B, H, W, Co),
+                     dgrad_n=n_tile(B, H + pad, W + pad, Ci), wgrad_mw=mw,
+                     wgrad_splits=_cdiv(n_pix, _cdiv(n_pix, want)))
+
+
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """The kernels' `cvt.rna.tf32.f32` in torch bit operations: each
+    float32 rounded to 10 mantissa bits, to nearest with ties away from
+    zero (the low 13 bits cleared); subnormals alike, a finite value past
+    the largest TF32 to +-inf, NaN stays NaN. The kernels split every
+    operand x into tf32_round(x) and tf32_round(x - tf32_round(x)).
+    Nothing on the main path calls it; it documents that arithmetic."""
+    t = t.to(torch.float32)
+    bits = (t.view(torch.int32) + 0x1000) & -0x2000
+    return torch.where(t.isnan(), t, bits.view(torch.float32))
 
 
 def _concat(x0, x1):
@@ -134,7 +216,8 @@ def conv3x3_reflect_fwd(x0: torch.Tensor, weight: torch.Tensor,
         build.check(build.load().fd_conv3x3_reflect_fwd(
             x0.data_ptr(), C0, None if x1 is None else x1.data_ptr(), C1,
             weight.data_ptr(), bias.data_ptr(), y.data_ptr(), B, H, W, Co,
-            int(elu), stream), "fd_conv3x3_reflect_fwd")
+            int(elu), n_tile(B, H, W, Co), stream),
+            "fd_conv3x3_reflect_fwd")
     LAUNCHES[name] += 1
     return y
 
@@ -163,7 +246,8 @@ def conv3x3_zero_act_fwd(x: torch.Tensor, weight: torch.Tensor,
             x.data_ptr(), C, weight.data_ptr(),
             None if scale is None else scale.data_ptr(),
             None if shift is None else shift.data_ptr(),
-            y.data_ptr(), B, H, W, Co, stream), "fd_conv3x3_zero_act_fwd")
+            y.data_ptr(), B, H, W, Co, n_tile(B, H, W, Co), stream),
+            "fd_conv3x3_zero_act_fwd")
     LAUNCHES[name] += 1
     return y
 
@@ -199,7 +283,8 @@ def conv3x3_dgrad(g: torch.Tensor, weight: torch.Tensor, C0: int,
             g.data_ptr(), Co, wt.data_ptr(),
             None if dxp is None else dxp.data_ptr(), dx0.data_ptr(), C0,
             None if dx1 is None else dx1.data_ptr(), C1, B, H, W,
-            int(reflect), stream), "fd_conv3x3_dgrad")
+            int(reflect), conv_tiles(B, H, W, C0 + C1, Co, reflect).dgrad_n,
+            stream), "fd_conv3x3_dgrad")
     LAUNCHES[name] += 1
     return dx0, dx1
 
@@ -233,19 +318,18 @@ def conv3x3_wgrad(g: torch.Tensor, x0: torch.Tensor,
     if reflect and (H < 2 or W < 2):
         raise ValueError(f"{name}: reflect pad needs H, W >= 2")
     Co, Ci = g.shape[1], C0 + C1
-    lib = build.load()
-    splits = lib.fd_conv3x3_wgrad_splits(B, H, W, Co, Ci)
-    part = torch.empty((splits, Co, Ci, 9), device=g.device,
+    tiles = conv_tiles(B, H, W, Ci, Co, reflect)
+    part = torch.empty((tiles.wgrad_splits, Co, Ci, 9), device=g.device,
                        dtype=torch.float32)
     dw = torch.empty((Co, Ci, 3, 3), device=g.device, dtype=torch.float32)
     with on_card(g) as stream:
-        build.check(lib.fd_conv3x3_wgrad(
+        build.check(build.load().fd_conv3x3_wgrad(
             g.data_ptr(), Co, x0.data_ptr(), C0,
             None if x1 is None else x1.data_ptr(), C1,
             None if scale is None else scale.data_ptr(),
             None if shift is None else shift.data_ptr(), part.data_ptr(),
-            dw.data_ptr(), B, H, W, int(reflect), stream),
-            "fd_conv3x3_wgrad")
+            dw.data_ptr(), B, H, W, int(reflect), tiles.wgrad_mw,
+            tiles.wgrad_splits, stream), "fd_conv3x3_wgrad")
     LAUNCHES[name] += 1
     return dw
 

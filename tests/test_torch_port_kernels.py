@@ -19,6 +19,7 @@ in float32 (the bounds of tests/test_pallas_reproj.py): 5e-6 on the map,
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax
 import jax.numpy as jnp
@@ -459,3 +460,177 @@ def test_reproj_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="no gradient"):
         reproj.reproj_loss(torch.zeros(1, 1, 1, 3, 4, 8),
                            torch.zeros(1, 3, 4, 8, requires_grad=True))
+
+
+# ---- the conv kernels' 3xTF32 arithmetic and their tile choice ----
+
+def _tf32_reference(x32):
+    """cvt.rna.tf32.f32 from the values, in float64: |x| to the nearest
+    multiple of its TF32 spacing (2^(e - 10) for |x| in [2^e, 2^(e+1)),
+    2^-136 below 2^-126), ties away from zero; the sign kept (also of 0);
+    past the largest TF32 to inf by the float32 cast; inf and NaN as
+    they are."""
+    with np.errstate(invalid="ignore"):  # signalling NaNs
+        x = x32.astype(np.float64)
+    a = np.abs(x)
+    _, e = np.frexp(np.where(np.isfinite(a) & (a > 0), a, 1.0))
+    spacing = np.ldexp(1.0, np.maximum(e - 1, -126) - 10)
+    r = np.copysign(np.floor(a / spacing + 0.5) * spacing, x)
+    with np.errstate(over="ignore"):
+        return np.where(np.isfinite(x), r, x).astype(np.float32)
+
+
+def test_tf32_round_matches_a_bit_level_reference():
+    """Ties away from zero, round-ups into the next binade (and past the
+    largest TF32 to inf), +-0, +-inf, NaN, subnormals, and random bit
+    patterns over the whole float32 range."""
+    b = np.float32
+    ulp = 2.0 ** -10  # of [1, 2)
+    cases = [1 + ulp / 2, -(1 + ulp / 2), 1 + 1.5 * ulp,
+             1 + ulp / 2 - 2 ** -23, 2 - ulp / 2, -(2 - ulp / 4), 0.0, -0.0,
+             np.inf, -np.inf, np.nan,
+             2.0 ** -149, 2.0 ** -137, -(2.0 ** -137), 3 * 2.0 ** -138,
+             np.finfo(b).max, -np.finfo(b).max]
+    special = np.array(cases, np.float64).astype(b)
+    bit_cases = np.array([0x7F7FE000, 0x007FFFFF, 0x80001000, 0x00001000,
+                          0x3F800FFF, 0x7F800001], np.uint32).view(b)
+    rand = np.random.RandomState(7).randint(0, 2 ** 32, 4096,
+                                            dtype=np.uint64)
+    x = np.concatenate([special, bit_cases,
+                        rand.astype(np.uint32).view(b)])
+    got = conv3x3.tf32_round(torch.from_numpy(x)).numpy()
+    want = _tf32_reference(x)
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(got[~nan].view(np.uint32),
+                                  want[~nan].view(np.uint32))
+    # the named cases
+    assert got[0] == 1 + ulp and got[1] == -(1 + ulp) and got[2] == 1 + 2 * ulp
+    assert got[3] == 1.0 and got[4] == 2.0 and got[5] == -2.0
+    assert np.signbit(got[7]) and got[8] == np.inf and got[9] == -np.inf
+    assert got[11] == 0.0 and got[12] == 2.0 ** -136
+    assert np.isinf(got[15]) and got[len(special)] == bit_cases[0]
+    assert got[len(special) + 1] == 2.0 ** -126  # subnormal -> normal
+
+
+def _split(t):
+    big = conv3x3.tf32_round(t)
+    return big, conv3x3.tf32_round(t - big)
+
+
+def _three_tf32(op, a, b):
+    """op(a, b) with both operands split as the kernels split them: the
+    small products first, each product exact in float32, summed in
+    float32."""
+    (ab, a_s), (bb, bs) = _split(a), _split(b)
+    return op(a_s, bb) + op(ab, bs) + op(ab, bb)
+
+
+def _one_tf32(op, a, b):
+    return op(conv3x3.tf32_round(a), conv3x3.tf32_round(b))
+
+
+def test_3xtf32_conv_is_fp32_accurate_and_1xtf32_is_not():
+    """The kernels' arithmetic emulated on the plain versions' operands. A
+    layer1-like forward (Ci = Co = 64, 576 products per output) lands
+    within chip_smoke's CONV_TOL (1e-4 abs + 1e-4 rel) of float64, and a
+    weight gradient over 9984 pixels within its WGRAD_REL (1e-3 of the
+    largest magnitude); one TF32 product, on the same data, misses both.
+    The wgrad data are a BN-like input (offset 0.25, spread 0.02) and a
+    per-channel zero-mean cotangent, as a conv ahead of a BatchNorm gets:
+    dW is then a small difference of large sums, and the input's low
+    mantissa bits, which one TF32 product drops, carry it."""
+    rng = np.random.RandomState(8)
+    x = torch.from_numpy(rng.standard_normal((2, 64, 12, 20))
+                         .astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((64, 64, 3, 3)) / 24)
+                         .astype(np.float32))
+
+    def conv(a, k):
+        return F.conv2d(a, k, padding=1)
+
+    want = conv(x.double(), w.double())
+    for emulate, ok in ((_three_tf32, True), (_one_tf32, False)):
+        got = emulate(conv, x, w).double()
+        assert bool(torch.allclose(got, want, atol=1e-4, rtol=1e-4)) is ok
+
+    xw = torch.from_numpy((0.25 + 0.02 * rng.standard_normal((2, 4, 48, 104)))
+                          .astype(np.float32))
+    g = rng.standard_normal((2, 4, 48, 104))
+    g = torch.from_numpy((g - g.mean((0, 2, 3), keepdims=True))
+                         .astype(np.float32))
+
+    def wgrad(gg, a):
+        return torch.nn.grad.conv2d_weight(a, (4, 4, 3, 3), gg, padding=1)
+
+    want = wgrad(g.double(), xw.double())
+    for emulate, ok in ((_three_tf32, True), (_one_tf32, False)):
+        err = (emulate(wgrad, g, xw).double() - want).abs().max()
+        assert bool(err <= 1e-3 * want.abs().max()) is ok
+
+
+def _path_convs():
+    """(B, H, W, Ci, Co, reflect) of every 3x3 conv kernel call of the
+    batch-12 train step and the batch-4 refine step at 640x192 (each call
+    also runs its dgrad and wgrad when it is trained), read from the
+    models: layer1's fused blocks of the four ResNet-18 encoders (the
+    pose encoders take both frame pairs, 2B images) at H/4, and every
+    ConvBlock of the stage-1 depth decoder and of the refine2d decoder at
+    its level (upconv_i_0 at level i + 1, upconv_i_1 and dispconv_i at
+    level i)."""
+    from fusiondepth_torch.config import Config
+    from fusiondepth_torch.models.depth_decoder import ConvBlock, DepthDecoder
+    from fusiondepth_torch.models.resnet import (RESNET_FEATURE_CHANNELS,
+                                                 BasicBlock, ResnetEncoder)
+
+    cfg = Config(num_layers=18, height=192, width=640)
+    H, W = cfg.height, cfg.width
+    gen = torch.Generator().manual_seed(0)
+    with torch.device("meta"):
+        layer1 = [(m.conv1.weight.shape, m.conv2.weight.shape)
+                  for m in ResnetEncoder(18).modules()
+                  if isinstance(m, BasicBlock) and m.fused]
+    ch = RESNET_FEATURE_CHANNELS[18]
+    decoders = (DepthDecoder(ch, scales=cfg.scales),
+                DepthDecoder(ch, scales=cfg.scales, road=True,
+                             catxy=cfg.catxy, deep=cfg.refine2d_deep,
+                             generator=gen))
+    calls = set()
+    for B, decs in ((12, decoders[:1]), (4, decoders)):
+        for n in (B, B, 2 * B, 2 * B):  # RGB, beam and the pose encoders
+            for shapes in layer1:
+                for co, ci, _, _ in shapes:
+                    calls.add((n, H // 4, W // 4, ci, co, False))
+        for dec in decs:
+            for name, m in dec.named_modules():
+                if isinstance(m, ConvBlock):
+                    # "upconv_4_0", "upconv_4_0.a", "dispconv_3"
+                    kind, level, *j = name.split(".")[0].split("_")
+                    lv = int(level) + (kind == "upconv" and j == ["0"])
+                    co, ci = m.conv.weight.shape[:2]
+                    calls.add((B, H >> lv, W >> lv, ci, co, True))
+    return sorted(calls)
+
+
+def test_conv_tiles_fit_every_conv_of_the_main_paths():
+    """Every tile and split that conv_tiles picks for the convs of the b12
+    train step and the b4 refine step is one the kernels take, every
+    wgrad run holds at least one pixel tile, and every wgrad grid fills
+    at least one wave of the H100's 132 SMs."""
+    calls = _path_convs()
+    # layer1 at b12, b24, b4, b8; stage 1's 14 and refine2d's 24 convs
+    assert len(calls) >= 4 + 14
+    assert any(ci % conv3x3.CHUNK for _, _, _, ci, _, _ in calls)  # K tails
+    assert any(co == 1 for *_, co, _ in calls)  # the heads: N tails
+    for B, H, W, Ci, Co, reflect in calls:
+        t = conv3x3.conv_tiles(B, H, W, Ci, Co, reflect)
+        assert t.fwd_n in conv3x3.N_TILES and t.dgrad_n in conv3x3.N_TILES
+        assert t.fwd_n <= max(conv3x3.N_TILES[0], 2 * Co)  # no wider
+        assert t.wgrad_mw in (1, 2, 4) and t.wgrad_splits >= 1
+        # the kernel's runs: ceil(n_pix / splits) tiles each, none empty
+        n_pix = B * conv3x3.pixel_tiles(H, W, conv3x3.WGRAD_TILE_H)
+        per_split = -(-n_pix // t.wgrad_splits)
+        assert (t.wgrad_splits - 1) * per_split < n_pix
+        blocks = (-(-Co // (16 * t.wgrad_mw))
+                  * -(-Ci // conv3x3.WGRAD_CI[t.wgrad_mw]) * t.wgrad_splits)
+        assert blocks >= conv3x3.N_SMS, (B, H, W, Ci, Co)
