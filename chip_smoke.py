@@ -52,16 +52,18 @@ order, it:
 8. times each kernel against its plain version (and one PyTorch call that
    computes the same function, where there is one; for the KNN, chunked
    cdist + topk, two calls) over the calls of a batch-12 train step (the
-   KNN: one GDC frame), the steps through the kernels against all-plain,
-   and the inference forward, with CUDA events after warm-up, each pair in
-   the order plain, kernel, kernel, plain; checks that two wgrad launches
-   on a batch-12 layer1 call are bit-equal;
+   KNN: one GDC frame; one line per call as well), the steps through the
+   kernels against all-plain, and the inference forward, with CUDA events
+   after warm-up, each pair in the order plain, kernel, kernel, plain;
+   checks that two wgrad launches on a batch-12 layer1 call are
+   bit-equal;
 9. prints the card's name and power limit (nvidia-smi), then one JSON
    line {"kernels": [...]} of the 11 kernels, each with the launches of
    the path that drives it and its bound (the conv rows at the 3xTF32
    rate, see PEAK_TF32_S, with their achieved TFLOP/s), then, last,
    {"ok": true, "device": {...}}. After the build it prints what ptxas
-   reported for the two conv kernels (registers, spills).
+   reported for the conv kernels and the pool and reprojection-loss
+   backward kernels (registers, spills; PTXAS_KERNELS).
 
 Any failed check raises, so the exit code is not 0.
 """
@@ -174,6 +176,10 @@ KERNELS = {
     "knn": (knn_kernel, "knn", knn_kernel.knn_plain, SRC + "knn.cu",
             "fusiondepth_tpu/gdc/pallas_knn.py:106"),
 }
+# source -> the kernels whose registers and spills the ptxas line gives
+PTXAS_KERNELS = {"conv3x3.cu": ("conv3x3_fwd_kernel", "conv3x3_wgrad_kernel"),
+                 "maxpool3x3s2.cu": ("maxpool3x3s2_bwd_kernel",),
+                 "reproj.cu": ("reproj_bwd_kernel",)}
 FORWARD_KERNELS = ("maxpool3x3s2", "conv3x3_reflect", "conv3x3_zero_act")
 # the kernels of the stage-1 train step
 TRAIN_KERNELS = FORWARD_KERNELS + ("maxpool3x3s2_bwd", "conv3x3_dgrad",
@@ -561,12 +567,13 @@ def ops_ms(name, args, kwargs) -> float:
     return flops / PEAK_FP32_S * 1e3
 
 
-def time_kernels(calls):
+def time_kernels(calls, path):
     """Per kernel, summed over its calls: kernel ms, plain ms, the library
     call's ms and the kernel's ms over the calls the library call covers,
     the bound (bytes over the HBM rate or `ops_ms`, the larger, call by
     call), and for the convs the achieved TFLOP/s (call_flops over the
-    kernel's ms)."""
+    kernel's ms). Also prints one line per call: its shapes, ms, plain ms
+    and bound."""
     t = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, library_of_ms=0.0,
                     library_calls=0, calls=0, bound_ms=0.0, bytes_ms=0.0,
                     ops_ms=0.0, flops=0.0) for name in KERNELS}
@@ -586,6 +593,10 @@ def time_kernels(calls):
         r["bytes_ms"] += b_ms
         r["ops_ms"] += o_ms
         r["bound_ms"] += max(b_ms, o_ms)
+        emit(timing_call=name, path=path,
+             shapes=[list(a.shape) for a in args if torch.is_tensor(a)],
+             ms=k, plain_ms=p, bound_ms=max(b_ms, o_ms),
+             bound_by="bytes" if b_ms >= o_ms else "operations")
         lib = library_call(name, args, kwargs)
         if lib is not None:
             lib_ms = (cuda_ms(lib, iters=10, warmup=2)
@@ -916,7 +927,7 @@ def train_phase(dev, tmp):
     emit_checks(err_big, calls, [], "train_batch12")
     wgrad_repeats(calls)
     err = {k: max(e, err_big.get(k, 0.0)) for k, e in err.items()}
-    ktimes = time_kernels(calls)
+    ktimes = time_kernels(calls, "train_batch12")
     del calls
 
     def kernel_step():
@@ -1051,7 +1062,7 @@ def gdc_phase(dev, tmp, weights):
                              knn_kernel.knn_plain(pts, k))
     require(same_graph, "the KNN kernel and its plain version give frame 0 "
             "different neighbour graphs")
-    ktimes = time_kernels(calls)
+    ktimes = time_kernels(calls, "inf_gdc")
     lib = [cuda_ms(lambda: cdist_topk(pts, k), iters=3, warmup=1)
            for _ in range(2)]
     ktimes["knn"]["cdist_topk_ms"] = sum(lib) / 2
@@ -1227,11 +1238,11 @@ def main() -> int:
     lib = build.build()
     build.load()
     emit(phase="build", seconds=time.perf_counter() - t0, library=lib.name)
-    # what ptxas reported for the two conv kernels' instantiations
-    emit(phase="ptxas", source=SRC + "conv3x3.cu", kernels=[
-        r for r in build.ptxas_report("conv3x3.cu")
-        if "conv3x3_fwd_kernel" in r["kernel"]
-        or "conv3x3_wgrad_kernel" in r["kernel"]])
+    # what ptxas reported for the kernels of PTXAS_KERNELS
+    emit(phase="ptxas", kernels=[
+        dict(source=SRC + src, **r) for src, names in PTXAS_KERNELS.items()
+        for r in build.ptxas_report(src)
+        if any(n in r["kernel"] for n in names)])
 
     errs, launches, times = [], {}, {}
     with tempfile.TemporaryDirectory() as tmp:

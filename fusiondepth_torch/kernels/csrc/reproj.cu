@@ -8,15 +8,17 @@
 // H-2; the same for columns), C1 = 0.01^2, C2 = 0.03^2, as
 // ops/planes.py::ssim_planes. The TPU kernel cuts H into 16-row blocks,
 // shifts rows through lane rolls and hands the halo rows' gradients back
-// to an XLA pass; here a block owns a 32 x 8 pixel tile, stages the tile
-// with its reflected halo in shared memory and addresses the reflection
-// itself, so any H, W >= 2 works and nothing but the loss map (forward)
-// or the warped cotangent (backward) goes back to memory. The target's
-// moments are recomputed from the staged target; the wrapper passes no
-// box3(target) fields.
+// to an XLA pass; here the kernels address the reflection themselves, so
+// any H, W >= 2 works and nothing but the loss map (forward) or the warped
+// cotangent (backward) goes back to memory. The TPU kernel takes
+// box3(target) and box3(target^2) as inputs; these kernels compute them
+// from the target.
 //
 // Shapes: warped (N, K, B, C, H, W), target (B, C, H, W), loss and its
 // cotangent g (N, K, B, H, W), dwarped (N, K, B, C, H, W).
+//
+// Forward: a block owns a 32 x 8 pixel tile of one (n, k, b) plane and
+// stages the tile with its reflected 1-pixel halo in shared memory.
 //
 // Backward, per channel: with a = dL/d(n/d) at each output pixel o, the
 // loss depends on warped p through mu_x = box(p), E[x^2] = box(p^2) and
@@ -26,20 +28,42 @@
 // where box3T is the adjoint of the reflect-padded 3x3 mean: the taps of o
 // that reflect onto q count once more (row 0's tap -1 lands on row 1, row
 // H-1's tap +1 on row H-2, likewise in W), as in the conv dgrad's pad
-// adjoint. One kernel: a block computes the coefficients Gmu, Gx2, Gxy on
-// its tile plus a one-pixel halo (from warped and target staged with a
-// two-pixel halo) in shared memory, then applies box3T. The clip passes
-// the gradient on its closed interval [0, 1] and |.| has derivative 0 at
-// 0, as torch's clamp and abs do.
+// adjoint. The clip passes the gradient on its closed interval [0, 1] and
+// |.| has derivative 0 at 0, as torch's clamp and abs do.
 //
 // Bound: bytes. At 640x192, batch 12, 2 x 4 warps and C = 3 the forward
 // reads 141.6 MB of warped and 17.7 MB of target and writes 47.2 MB
 // (62 us at 3.35 TB/s); the backward also reads the 47.2 MB cotangent
-// and writes 141.6 MB (104 us). The function needs about 42 operations per
-// pixel and channel of a warp forward and 73 backward (derived in
-// chip_smoke.py, REPROJ_OPS), 22 us and 39 us at the fp32 roof; this
-// kernel does more, recomputing the halo's moments and coefficients in
-// every block, and stays below the roof at these sizes.
+// and writes 141.6 MB (348 MB, 104 us). The function needs about 42
+// operations per pixel and channel of a warp forward and 73 backward
+// (derived in chip_smoke.py, REPROJ_OPS), 22 us and 39 us at the fp32
+// roof. The backward as compiled issues about 170 instructions per pixel
+// and channel of a warp (the SSIM algebra, two quotients, the shuffles,
+// addressing and masks), so the card's instruction issue rate, not its
+// bytes, is what holds this kernel, and its design cuts the work done
+// again.
+//
+// Backward design. A block of up to 8 warps owns one batch element b, a
+// band of BWD_COLS = 60 output columns and a strip of BWD_TH = 32 output
+// rows. Per channel it stages the target on the strip's rows with a
+// 2-pixel reflected halo (36 x 64) and computes its moments mu_y and
+// E[y^2] there once (34 x 64), for all the n * k warps of b: each of the
+// block's warps then walks one warp's strip down H. A lane holds 2
+// adjacent columns of the band plus its halo (64 columns a warp, the
+// reflection of each column worked out once). Per row it takes one new
+// row of warped and of g, both loaded one row ahead (coalesced scalar
+// loads; float2 loads of the unreflected columns measured no faster);
+// keeps the 3-row windows of p, p^2, p t and of the adjoint's row sums in
+// registers, in three Row slots that rotate instead of being copied;
+// takes the horizontal taps of the box and of its adjoint from the
+// neighbouring lanes by shuffles; computes each coefficient once per
+// pixel (the 2-column halo and the strip's 2 halo rows aside: 64/60 x
+// 34/32 of the work); and writes one output row behind. The moments of
+// warped and of the target are rounded step by step in box3's order
+// (tap3), so that warped == target gives n == d exactly, as in the plain
+// version. A step is a long dependent chain, so the kernel lives on
+// occupancy: BWD_BLOCKS_PER_SM = 3 caps it at 80 registers, with 26.6 KB
+// of shared memory a block; 792 blocks at the b12 shape, two full waves.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -185,86 +209,263 @@ __device__ __forceinline__ float tap_weight(int q, int d, int n) {
   return w;
 }
 
-__global__ void __launch_bounds__(THREADS)
+// The backward's tiling (see the header): a block of up to BWD_WARPS
+// warps owns one batch element b, a band of BWD_COLS output columns and a
+// strip of BWD_TH output rows; each warp walks the rows of one n * k warp
+// of that b, a lane holding BWD_CPL adjacent columns of the band and its
+// 2-column halo on either side.
+constexpr int BWD_WARPS = 8;
+constexpr int BWD_CPL = 2;
+constexpr int BWD_SPAN = 32 * BWD_CPL;  // columns x0 - 2 ... x0 + SPAN - 3
+constexpr int BWD_COLS = BWD_SPAN - 4;  // output columns x0 ... x0 + COLS - 1
+constexpr int BWD_TH = 32;
+// blocks an SM keeps: a step of a warp is a long dependent chain (two
+// shuffles, the SSIM quotient), so the kernel lives on occupancy; this
+// caps the registers at 65536 / (BWD_BLOCKS_PER_SM * 256)
+constexpr int BWD_BLOCKS_PER_SM = 3;
+
+// One row of a lane's columns in the backward's sliding windows: warped,
+// its square and its product with the target on an input row; g / C and
+// the box adjoint's row sums of (Gmu, Gx2, Gxy) on the moment row above.
+struct Row {
+  float p[BWD_CPL], pp[BWD_CPL], pt[BWD_CPL];
+  float G[BWD_CPL], h[3][BWD_CPL];
+};
+
+// (a + b + c) / 3 of one 3-tap sum of box3, rounded step by step as
+// ops/planes.py::box3 and never contracted into a fused multiply-add, so
+// that the warped and the target moments, though computed apart, round
+// alike (warped == target then gives n == d exactly, see ssim_terms)
+__device__ __forceinline__ float tap3(float a, float b, float c) {
+  return __fmul_rn(__fadd_rn(__fadd_rn(a, b), c), third());
+}
+
+__device__ __forceinline__ float sq(float a) { return __fmul_rn(a, a); }
+
+// the values of the lanes' columns left and right of this lane's
+template <int CPL>
+__device__ __forceinline__ void neighbours(const float (&v)[CPL], float& l,
+                                           float& r) {
+  l = __shfl_up_sync(0xffffffffu, v[CPL - 1], 1);
+  r = __shfl_down_sync(0xffffffffu, v[0], 1);
+}
+
+// ((v[j-1] + v[j]) + v[j+1]) / 3 across the lane's columns and its
+// neighbours'
+template <int CPL>
+__device__ __forceinline__ void hbox(const float (&v)[CPL], float (&out)[CPL]) {
+  float l, r;
+  neighbours<CPL>(v, l, r);
+#pragma unroll
+  for (int j = 0; j < CPL; ++j)
+    out[j] = tap3(j ? v[j - 1] : l, v[j], j + 1 < CPL ? v[j + 1] : r);
+}
+
+// sum_d w_d G(column + d) of the box adjoint along a row
+template <int CPL>
+__device__ __forceinline__ void hadj(const float (&v)[CPL],
+                                     const float (&w)[3][CPL],
+                                     float (&out)[CPL]) {
+  float l, r;
+  neighbours<CPL>(v, l, r);
+#pragma unroll
+  for (int j = 0; j < CPL; ++j)
+    out[j] = w[0][j] * (j ? v[j - 1] : l) + w[1][j] * v[j] +
+             w[2][j] * (j + 1 < CPL ? v[j + 1] : r);
+}
+
+__global__ void __launch_bounds__(BWD_WARPS * 32, BWD_BLOCKS_PER_SM)
     reproj_bwd_kernel(const float* __restrict__ warped,
                       const float* __restrict__ target,
                       const float* __restrict__ g,
-                      float* __restrict__ dwarped, int B, int C, int H,
-                      int W) {
-  constexpr int R = 2, ROWS = TY + 4, COLS = TX + 4;
-  constexpr int GR = TY + 2, GC = TX + 2;  // coefficient tile, 1-px halo
-  __shared__ float P[ROWS * COLS], T[ROWS * COLS], PP[ROWS * COLS],
-      TT[ROWS * COLS], PT[ROWS * COLS];
-  __shared__ float Gmu[GR * GC], Gx2[GR * GC], Gxy[GR * GC];
-  const long long plane = blockIdx.z;
-  const long long b = plane % B;
+                      float* __restrict__ dwarped, int NK, int B, int C,
+                      int H, int W) {
+  constexpr int CPL = BWD_CPL, SPAN = BWD_SPAN, TH = BWD_TH;
+  // the target of channel c on the strip's rows y0 - 2 ... y0 + TH + 1, and
+  // its box moments mu_y, E[y^2] on rows y0 - 1 ... y0 + TH, staged once
+  // and shared by the block's n * k warps
+  __shared__ __align__(16) float Ts[(TH + 4) * SPAN];
+  __shared__ __align__(16) float MY[(TH + 2) * SPAN];
+  __shared__ __align__(16) float Y2[(TH + 2) * SPAN];
+  const int b = blockIdx.z;
+  const int y0 = blockIdx.y * TH, x0 = blockIdx.x * BWD_COLS;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
   const long long HW = (long long)H * W;
-  const int y0 = blockIdx.y * TY, x0 = blockIdx.x * TX;
-  const int ty = threadIdx.x / TX, tx = threadIdx.x % TX;
-  const int y = y0 + ty, x = x0 + tx;
-  const float* gp = g + plane * HW;
   const float inv_c = 1.f / C;
+  const float k9 = third() * third();
+
+  // this lane's columns: where they are read from (reflected once, here),
+  // whether their moments (span columns 1 ... SPAN - 2) and their output
+  // (2 ... SPAN - 3) are in the image, and the box adjoint's column weights
+  int xr[CPL], xs[CPL];
+  bool mval[CPL], oval[CPL];
+  float wx[3][CPL];
+#pragma unroll
+  for (int j = 0; j < CPL; ++j) {
+    const int s = CPL * lane + j, x = x0 - 2 + s;
+    xs[j] = x;
+    xr[j] = reflect(x, W);
+    mval[j] = s >= 1 && s <= SPAN - 2 && x >= 0 && x < W;
+    oval[j] = s >= 2 && s <= SPAN - 3 && x < W;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) wx[d][j] = tap_weight(x, d - 1, W);
+  }
+  const int steps = min(TH + 2, H - y0 + 2);
 
   for (int c = 0; c < C; ++c) {
-    const float* p = warped + (plane * C + c) * HW;
-    const float* t = target + (b * C + c) * HW;
+    const float* t = target + ((long long)b * C + c) * HW;
     __syncthreads();
-    stage<R>(p, t, H, W, y0, x0, P, T, PP, TT, PT);
-    __syncthreads();
-    // coefficients at output pixels o of the tile and its 1-pixel halo
-    for (int i = threadIdx.x; i < GR * GC; i += THREADS) {
-      const int oy = y0 - 1 + i / GC, ox = x0 - 1 + i % GC;
-      float gmu = 0.f, gx2 = 0.f, gxy = 0.f;
-      if (oy >= 0 && oy < H && ox >= 0 && ox < W) {
-        const int sy = i / GC + 1, sx = i % GC + 1;  // in the staged tile
-        const Moments m = moments<COLS>(P, T, PP, TT, PT, sy, sx);
-        const Ssim f = ssim_terms(m);
-        const float raw = __fsub_rn(1.f, f.q) * 0.5f;
-        const float G = __ldg(gp + (long long)oy * W + ox) * inv_c;
-        // d loss / d q, through the clip (closed interval) and (1 - q) / 2
-        const float a =
-            (raw >= 0.f && raw <= 1.f) ? -0.5f * 0.85f * G : 0.f;
-        const float d = f.B1 * f.B2;
-        const float gn = a / d;
-        const float gd = -a * f.q / d;
-        const float gA1 = gn * f.A2, gA2 = gn * f.A1;
-        const float gB1 = gd * f.B2, gB2 = gd * f.B1;
-        gmu = gA1 * 2.f * m.my - gA2 * 2.f * m.my + gB1 * 2.f * m.mx -
-              gB2 * 2.f * m.mx;
-        gx2 = gB2;
-        gxy = 2.f * gA2;
-      }
-      Gmu[i] = gmu;
-      Gx2[i] = gx2;
-      Gxy[i] = gxy;
+    for (int i = threadIdx.x; i < (TH + 4) * SPAN; i += blockDim.x) {
+      const int r = reflect(y0 - 2 + i / SPAN, H);
+      Ts[i] = __ldg(t + (long long)r * W + reflect(x0 - 2 + i % SPAN, W));
     }
     __syncthreads();
-    if (y < H && x < W) {
-      float smu = 0.f, sx2 = 0.f, sxy = 0.f;
+    for (int i = threadIdx.x; i < (TH + 2) * SPAN; i += blockDim.x) {
+      const int s = i % SPAN;
+      float my = 0.f, y2 = 0.f;
+      if (s >= 1 && s <= SPAN - 2) {
+        const float* a = Ts + i;  // rows y0 - 2 + i / SPAN and the 2 below
+        float v[3], q[3];
 #pragma unroll
-      for (int dy = -1; dy <= 1; ++dy) {
-        const float wy = tap_weight(y, dy, H);
-        float rmu = 0.f, rx2 = 0.f, rxy = 0.f;
-#pragma unroll
-        for (int dx = -1; dx <= 1; ++dx) {
-          const float w = tap_weight(x, dx, W);
-          const int i = (ty + 1 + dy) * GC + (tx + 1 + dx);
-          rmu += w * Gmu[i];
-          rx2 += w * Gx2[i];
-          rxy += w * Gxy[i];
+        for (int d = 0; d < 3; ++d) {
+          const float t0 = a[d - 1], t1 = a[SPAN + d - 1],
+                      t2 = a[2 * SPAN + d - 1];
+          v[d] = tap3(t0, t1, t2);
+          q[d] = tap3(sq(t0), sq(t1), sq(t2));
         }
-        smu += wy * rmu;
-        sx2 += wy * rx2;
-        sxy += wy * rxy;
+        my = tap3(v[0], v[1], v[2]);
+        y2 = tap3(q[0], q[1], q[2]);
       }
-      const float k9 = third() * third();
-      const int si = (ty + R) * COLS + (tx + R);
-      const float pv = P[si], tv = T[si];
-      const float diff = pv - tv;
-      const float sgn = diff > 0.f ? 1.f : (diff < 0.f ? -1.f : 0.f);
-      const float G = __ldg(gp + (long long)y * W + x) * inv_c;
-      dwarped[(plane * C + c) * HW + (long long)y * W + x] =
-          k9 * (smu + 2.f * pv * sx2 + tv * sxy) + 0.15f * G * sgn;
+      MY[i] = my;
+      Y2[i] = y2;
+    }
+    __syncthreads();
+
+    for (int jp = warp; jp < NK; jp += nwarps) {
+      const long long plane = (long long)jp * B + b;  // (n * K + k) * B + b
+      const float* p = warped + (plane * C + c) * HW;
+      const float* gp = g + plane * HW;
+      float* dp = dwarped + (plane * C + c) * HW;
+
+      // warped at image row y0 - 2 + i; g at image row o, clamped (a lane
+      // whose column is outside the image reads its reflection, unused)
+      auto fetch = [&](int i, float (&pv)[CPL]) {
+        const float* row = p + (long long)reflect(y0 - 2 + i, H) * W;
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) pv[j] = __ldg(row + xr[j]);
+      };
+      auto fetch_g = [&](int o, float (&gv)[CPL]) {
+        const float* row = gp + (long long)min(max(o, 0), H - 1) * W;
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) gv[j] = __ldg(row + xr[j]);
+      };
+      // p^2 and p t of staged row i
+      auto products = [&](int i, Row& x) {
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) {
+          x.pp[j] = sq(x.p[j]);
+          x.pt[j] = __fmul_rn(x.p[j], Ts[i * SPAN + CPL * lane + j]);
+        }
+      };
+      // the next step's row of warped and of g, loaded one step ahead so
+      // that their latency overlaps a step's arithmetic
+      float pn[CPL], gn[CPL];
+
+      // Step s: the input row r = y0 + s enters `cur`; the moments, the
+      // coefficients and the adjoint's row sums of o = r - 1 go to `cur`
+      // as well; the output row q = o - 1 is written from the adjoint's
+      // rows o - 2 (older), o - 1 (old) and o (cur). The three Rows rotate
+      // over the steps, so that no window is copied.
+      auto step = [&](int s, const Row& older, const Row& old, Row& cur) {
+        float gv[CPL];
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) {
+          cur.p[j] = pn[j];
+          gv[j] = gn[j];
+        }
+        fetch(s + 3, pn);
+        fetch_g(y0 + s, gn);
+        products(s + 2, cur);
+        float v[CPL], vv[CPL], vt[CPL];
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) {
+          v[j] = tap3(older.p[j], old.p[j], cur.p[j]);
+          vv[j] = tap3(older.pp[j], old.pp[j], cur.pp[j]);
+          vt[j] = tap3(older.pt[j], old.pt[j], cur.pt[j]);
+        }
+        float mx[CPL], x2[CPL], xy[CPL];
+        hbox<CPL>(v, mx);
+        hbox<CPL>(vv, x2);
+        hbox<CPL>(vt, xy);
+        const int o = y0 + s - 1;
+        const bool orow = o >= 0 && o < H;
+        float cmu[CPL], cx2[CPL], cxy[CPL];
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) {
+          const int si = s * SPAN + CPL * lane + j;
+          Moments m;
+          m.mx = mx[j];
+          m.my = MY[si];
+          m.x2 = x2[j];
+          m.y2 = Y2[si];
+          m.xy = xy[j];
+          const bool ok = orow && mval[j];
+          cur.G[j] = ok ? gv[j] * inv_c : 0.f;
+          const Ssim f = ssim_terms(m);
+          const float raw = __fsub_rn(1.f, f.q) * 0.5f;
+          // d loss / d q, through the clip (closed interval) and (1 - q) / 2
+          const float a =
+              (raw >= 0.f && raw <= 1.f) ? -0.5f * 0.85f * cur.G[j] : 0.f;
+          // the coefficient's quotient: the approximate division (2 ulp)
+          // is far inside the cotangent's tolerance, and a step's latency
+          // chain runs through it (the SSIM quotient f.q stays IEEE)
+          const float gq = __fdividef(a, f.B1 * f.B2);
+          const float gd = -gq * f.q;
+          const float gA1 = gq * f.A2, gA2 = gq * f.A1;
+          const float gB1 = gd * f.B2, gB2 = gd * f.B1;
+          cmu[j] = ok ? 2.f * m.my * (gA1 - gA2) + 2.f * m.mx * (gB1 - gB2)
+                      : 0.f;
+          cx2[j] = ok ? gB2 : 0.f;
+          cxy[j] = ok ? 2.f * gA2 : 0.f;
+        }
+        hadj<CPL>(cmu, wx, cur.h[0]);
+        hadj<CPL>(cx2, wx, cur.h[1]);
+        hadj<CPL>(cxy, wx, cur.h[2]);
+        if (s < 2) return;
+        // output row q = o - 1 takes the adjoint's rows q - 1, q, q + 1
+        const int q = o - 1;
+        const float w0 = tap_weight(q, -1, H), w1 = tap_weight(q, 0, H),
+                    w2 = tap_weight(q, 1, H);
+        float* drow = dp + (long long)q * W;
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) {
+          float sum[3];
+#pragma unroll
+          for (int f = 0; f < 3; ++f)
+            sum[f] = w0 * older.h[f][j] + w1 * old.h[f][j] + w2 * cur.h[f][j];
+          const float pv = older.p[j];
+          const float tv = Ts[s * SPAN + CPL * lane + j];
+          const float diff = pv - tv;
+          const float sgn = diff > 0.f ? 1.f : (diff < 0.f ? -1.f : 0.f);
+          if (oval[j])
+            drow[xs[j]] = k9 * (sum[0] + 2.f * pv * sum[1] + tv * sum[2]) +
+                          0.15f * old.G[j] * sgn;
+        }
+      };
+
+      Row r0, r1, r2;  // input rows y0 - 2 and y0 - 1 in r0 and r1
+      fetch(0, r0.p);
+      fetch(1, r1.p);
+      products(0, r0);
+      products(1, r1);
+      fetch(2, pn);
+      fetch_g(y0 - 1, gn);
+      for (int s = 0; s < steps; s += 3) {
+        step(s, r0, r1, r2);
+        if (s + 1 < steps) step(s + 1, r1, r2, r0);
+        if (s + 2 < steps) step(s + 2, r2, r0, r1);
+      }
     }
   }
 }
@@ -282,13 +483,16 @@ extern "C" int fd_reproj_fwd(const void* warped, const void* target,
   return (int)cudaGetLastError();
 }
 
-// g (N, K, B, H, W) -> dwarped (N, K, B, C, H, W).
+// g (N, K, B, H, W) -> dwarped (N, K, B, C, H, W). One block per (band of
+// BWD_COLS columns, strip of BWD_TH rows, b), min(N K, BWD_WARPS) warps.
 extern "C" int fd_reproj_bwd(const void* warped, const void* target,
                              const void* g, void* dwarped, int NK, int B,
                              int C, int H, int W, void* stream) {
-  const dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY, NK * B);
-  reproj_bwd_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+  const dim3 grid((W + BWD_COLS - 1) / BWD_COLS, (H + BWD_TH - 1) / BWD_TH,
+                  B);
+  const int threads = 32 * min(NK, BWD_WARPS);
+  reproj_bwd_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
       (const float*)warped, (const float*)target, (const float*)g,
-      (float*)dwarped, B, C, H, W);
+      (float*)dwarped, NK, B, C, H, W);
   return (int)cudaGetLastError();
 }

@@ -16,6 +16,8 @@ in float32 (the bounds of tests/test_pallas_reproj.py): 5e-6 on the map,
 5e-5 on the warped cotangent.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -381,7 +383,7 @@ def test_warp_matches_pallas_banded_kernel_in_band():
     H a multiple of 16, through the JAX dispatch with the Pallas kernel in
     interpret mode: the kernel is exact there. Gradients to the grids, so
     coordinates clamped at the border get none on either side."""
-    grids, src, g = _warp_case(2, 2, 1, 3, 32, 128, spread=12.0, seed=8,
+    grids, src, g = _warp_case(1, 2, 1, 3, 16, 128, spread=12.0, seed=8,
                                dtype=np.float32)
     want, vjp = jax.vjp(jax.jit(lambda gr: jax_warp_planes(
         jnp.asarray(src), gr, use_pallas=True, interpret=True)),
@@ -634,3 +636,200 @@ def test_conv_tiles_fit_every_conv_of_the_main_paths():
         blocks = (-(-Co // (16 * t.wgrad_mw))
                   * -(-Ci // conv3x3.WGRAD_CI[t.wgrad_mw]) * t.wgrad_splits)
         assert blocks >= conv3x3.N_SMS, (B, H, W, Ci, Co)
+
+
+# ---- the pool and reprojection backward kernels' schedules, modelled ----
+# The CUDA kernels cannot run here; these hold the arithmetic of their tile
+# schedules, written in torch ops with the kernels' own tile constants, to
+# the plain versions that chip_smoke.py holds the kernels to on the card.
+
+def _cu_constants(source, *names):
+    """The `constexpr int` values `names` of kernels/csrc/`source`."""
+    text = (build.CSRC / source).read_text()
+    return [int(re.search(rf"constexpr int {n} = (\d+);", text).group(1))
+            for n in names]
+
+
+def _pool_bwd_tiled(x, y, g):
+    """maxpool3x3s2_bwd_kernel's schedule in float32: per tile of TH x TW
+    windows, x staged with its one-window halo (pads -inf), y (NaN past
+    the image) and g of (TH + 1) x (TW + 1) windows; pass 1 divides g by
+    each window's tie count over its 9 staged taps; pass 2 gives each
+    2 x 2 quad of input pixels its windows' gc where x == y, in the plain
+    scatter's (dy, dx) order."""
+    TH, TW = _cu_constants("maxpool3x3s2.cu", "PB_TH", "PB_TW")
+    B, C, H, W = x.shape
+    Ho, Wo = H // 2, W // 2
+    dx = torch.full_like(x, float("nan"))
+    for oh0 in range(0, Ho, TH):
+        for ow0 in range(0, Wo, TW):
+            xs = torch.full((B, C, 2 * TH + 3, 2 * TW + 3), float("-inf"))
+            h0, w0 = 2 * oh0 - 1, 2 * ow0 - 1
+            h1, w1 = min(h0 + 2 * TH + 3, H), min(w0 + 2 * TW + 3, W)
+            xs[..., max(h0, 0) - h0:h1 - h0, max(w0, 0) - w0:w1 - w0] = \
+                x[..., max(h0, 0):h1, max(w0, 0):w1]
+            ys = torch.full((B, C, TH + 1, TW + 1), float("nan"))
+            gs = torch.zeros((B, C, TH + 1, TW + 1))
+            nr, nc = min(TH + 1, Ho - oh0), min(TW + 1, Wo - ow0)
+            ys[..., :nr, :nc] = y[..., oh0:oh0 + nr, ow0:ow0 + nc]
+            gs[..., :nr, :nc] = g[..., oh0:oh0 + nr, ow0:ow0 + nc]
+            n = torch.zeros_like(gs)
+            for dy in range(3):
+                for dc in range(3):
+                    n += xs[..., dy:dy + 2 * TH + 1:2,
+                            dc:dc + 2 * TW + 1:2] == ys
+            gc = gs / n.clamp(min=1.0)
+
+            def win(a, b):  # the (TH, TW) windows (oh + a, ow + b)
+                return ys[..., a:a + TH, b:b + TW], gc[..., a:a + TH, b:b + TW]
+
+            quad = {}
+            for a in (0, 1):
+                for b in (0, 1):
+                    xv = xs[..., 1 + a:1 + a + 2 * TH:2, 1 + b:1 + b + 2 * TW:2]
+                    acc = torch.zeros_like(xv)
+                    for wa in ((1, 0) if a else (0,)):
+                        for wb in ((1, 0) if b else (0,)):
+                            yv, gv = win(wa, wb)
+                            acc = torch.where(xv == yv, acc + gv, acc)
+                    quad[a, b] = acc
+            nr, nc = min(TH, Ho - oh0), min(TW, Wo - ow0)
+            for (a, b), acc in quad.items():
+                dx[..., 2 * oh0 + a:2 * (oh0 + nr):2,
+                   2 * ow0 + b:2 * (ow0 + nc):2] = acc[..., :nr, :nc]
+    return dx
+
+
+@pytest.mark.parametrize("hw", [(22, 74), (4, 6)])
+def test_pool_backward_tile_schedule_is_bit_equal_to_plain(hw):
+    """Ties everywhere (a ReLU of small integers), a NaN, an all -inf
+    corner window (its pad taps tie too), on a shape whose windows end
+    inside a tile in both H and W (tile and image edges), and on one
+    smaller than a tile."""
+    r = np.random.RandomState(5)
+    x = np.maximum(r.randint(-1, 3, (2, 3) + hw), 0).astype(np.float32)
+    x[0, 1, 5 % hw[0], 7 % hw[1]] = np.nan
+    x[1, 2, :2, :2] = -np.inf
+    x = torch.from_numpy(x)
+    y = pool.maxpool3x3s2_plain(x)
+    g = torch.from_numpy(r.standard_normal(y.shape).astype(np.float32))
+    got, want = _pool_bwd_tiled(x, y, g), pool.maxpool3x3s2_bwd_plain(x, y, g)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
+
+
+def _reflect_np(i, n):
+    i = np.where(i < 0, -i, np.where(i >= n, 2 * n - 2 - i, i))
+    return np.clip(i, 0, n - 1)
+
+
+def _tap_weight_np(q, d, n):
+    """reproj.cu::tap_weight: the weight of input q in output q + d."""
+    o = q + d
+    w = 1.0 + ((d == -1) & (q == 1)) + ((d == 1) & (q == n - 2))
+    return np.where((o >= 0) & (o < n), w, 0.0)
+
+
+def _reproj_bwd_streamed(warped, target, g):
+    """reproj_bwd_kernel's schedule in the input's dtype: per band of
+    SPAN - 4 output columns (a warp's SPAN columns with a 2-column halo,
+    each reflected once) and strip of TH rows, the target's moments
+    staged on the strip's rows, then each warp's rows streamed through
+    3-row windows of p, p^2, p t and of the box adjoint's row sums, one
+    output row behind the moments."""
+    CPL, TH = _cu_constants("reproj.cu", "BWD_CPL", "BWD_TH")
+    SPAN = 32 * CPL
+    n, k, B, C, H, W = warped.shape
+    # the plain version's constants; 1/3 is float32's, as in the kernel
+    C1, C2, third = 0.01 ** 2, 0.03 ** 2, float(np.float32(1.0 / 3.0))
+
+    def tap3(a, b, c):
+        return (a + b + c) * third
+
+    def hbox(v):
+        out = torch.zeros_like(v)
+        out[..., 1:-1] = tap3(v[..., :-2], v[..., 1:-1], v[..., 2:])
+        return out
+
+    out = torch.full_like(warped, float("nan"))
+    gc = g[:, :, :, None] / C
+    cols = np.arange(SPAN)
+    for y0 in range(0, H, TH):
+        for x0 in range(0, W, SPAN - 4):
+            xs = x0 - 2 + cols
+            xr = _reflect_np(xs, W)
+            mval = torch.from_numpy((cols >= 1) & (cols <= SPAN - 2)
+                                    & (xs >= 0) & (xs < W))
+            oval = (cols >= 2) & (cols <= SPAN - 3) & (xs < W)
+            wx = [torch.from_numpy(_tap_weight_np(xs, d, W)).to(warped)
+                  for d in (-1, 0, 1)]
+
+            def hadj(v):
+                out = torch.zeros_like(v)
+                out[..., 1:-1] = (wx[0][1:-1] * v[..., :-2]
+                                  + wx[1][1:-1] * v[..., 1:-1]
+                                  + wx[2][1:-1] * v[..., 2:])
+                return out
+
+            def row(a, i):  # image row y0 - 2 + i at the band's columns
+                return a[..., int(_reflect_np(y0 - 2 + i, H)), :][..., xr]
+
+            T = [row(target, i) for i in range(TH + 4)]
+            MY = [hbox(tap3(T[i], T[i + 1], T[i + 2])) for i in range(TH + 2)]
+            Y2 = [hbox(tap3(T[i] ** 2, T[i + 1] ** 2, T[i + 2] ** 2))
+                  for i in range(TH + 2)]
+            pa, pb = row(warped, 0), row(warped, 1)
+            zero = torch.zeros_like(pa)
+            ha, hb, Gb = [zero] * 3, [zero] * 3, zero
+            for s in range(min(TH + 2, H - y0 + 2)):
+                pc = row(warped, s + 2)
+                mx = hbox(tap3(pa, pb, pc))
+                x2 = hbox(tap3(pa * pa, pb * pb, pc * pc))
+                xy = hbox(tap3(pa * T[s], pb * T[s + 1], pc * T[s + 2]))
+                my, y2 = MY[s], Y2[s]
+                o = y0 + s - 1
+                ok = mval & (0 <= o < H)
+                Gc = torch.where(ok, gc[..., min(max(o, 0), H - 1), xr], 0.0)
+                A1, A2 = 2 * mx * my + C1, 2 * (xy - mx * my) + C2
+                B1, B2 = mx * mx + my * my + C1, (x2 - mx * mx) + \
+                    (y2 - my * my) + C2
+                q = A1 * A2 / (B1 * B2)
+                raw = (1 - q) / 2
+                a = torch.where((raw >= 0) & (raw <= 1), -0.5 * 0.85 * Gc, 0.0)
+                gn = a / (B1 * B2)
+                gd = -gn * q
+                coef = [2 * my * (gn * A2 - gn * A1) + 2 * mx * (gd * B2 - gd * B1),
+                        gd * B1, 2 * gn * A1]
+                hc = [hadj(torch.where(ok, c, 0.0)) for c in coef]
+                if s >= 2:
+                    qr = o - 1
+                    w0, w1, w2 = (float(_tap_weight_np(qr, d, H))
+                                  for d in (-1, 0, 1))
+                    smu, sx2, sxy = (w0 * ha[f] + w1 * hb[f] + w2 * hc[f]
+                                     for f in range(3))
+                    val = (third * third * (smu + 2 * pa * sx2 + T[s] * sxy)
+                           + 0.15 * Gb * torch.sign(pa - T[s]))
+                    out[..., qr, xs[oval]] = val[..., oval]
+                pa, pb, ha, hb, Gb = pb, pc, hb, hc, Gc
+    return out
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 1, 3, 2, 9), (1, 1, 2, 3, 20, 2),
+                                   (2, 1, 1, 3, 19, 33),
+                                   (1, 2, 1, 3, 37, 70)],
+                         ids=["H2", "W2", "H19", "ragged"])
+def test_reproj_backward_streamed_schedule_matches_plain_f64(shape):
+    """H = 2, W = 2, H = 19 and a shape whose H and W are no multiples of
+    the kernel's strip and band (two of each, the last ragged), with one
+    warp equal to the target (the clip at its bound)."""
+    r = np.random.RandomState(6)
+    n, k, B, C, H, W = shape
+    warped = torch.from_numpy(r.rand(*shape))
+    target = torch.from_numpy(r.rand(B, C, H, W))
+    warped[-1, -1, -1] = target[-1]
+    g = torch.from_numpy(r.standard_normal((n, k, B, H, W)))
+    got = _reproj_bwd_streamed(warped, target, g)
+    want = reproj.reproj_bwd_plain(warped, target, g)
+    assert not got.isnan().any()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-12,
+                               rtol=0)

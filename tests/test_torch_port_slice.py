@@ -86,11 +86,12 @@ def jax_side():
                              np.random.default_rng(0), np.float64)
 
         # jitted: one compile of the whole forward costs less on a CPU
-        # than the eager per-op compiles (about 17 s against 38 s)
-        fwd_fn = jit(lambda b: nets.forward_depth(v, b, train=False)[0])
+        # than the eager per-op compiles (about 17 s against 38 s); the
+        # weights are an argument, not constants folded into the program
+        fwd_fn = jit(lambda v, b: nets.forward_depth(v, b, train=False)[0])
 
         def disp(b):
-            out = fwd_fn({k: jnp.asarray(x) for k, x in b.items()})
+            out = fwd_fn(v, {k: jnp.asarray(x) for k, x in b.items()})
             return {k: np.asarray(x) for k, x in out.items()}
 
         fwd = disp(batch)
@@ -142,7 +143,7 @@ def test_forward_depth_variant_matches_jax():
         v = random_variables(lambda: jnets.init(jax.random.PRNGKey(0)),
                              np.random.default_rng(1), np.float64)
 
-        def fwd(b):
+        def fwd(v, b):
             # the disparities and the mask apart: a pytree's dict keys
             # must sort, and ("disp", 0) and "predictive_mask" do not
             out = jnets.forward_depth(v, b, train=False)[0]
@@ -150,7 +151,7 @@ def test_forward_depth_variant_matches_jax():
             return out, mask
 
         want = jax.tree.map(np.asarray, jit(fwd)(
-            {k: jnp.asarray(x) for k, x in batch.items()}))
+            v, {k: jnp.asarray(x) for k, x in batch.items()}))
     nets = FusionNets(cfg, device=CPU)
     nets.load_state_dict(from_jax_variables({k: v[k] for k in NETS
                                              if k in v}))
