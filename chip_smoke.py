@@ -38,8 +38,10 @@ order, it:
    with duplicates, a grid and sentinels (sorted neighbour distances
    within 1e-6 relative), requires the kernel and plain KNN to give the
    frame the same neighbour graph and GDC through either to agree bit for
-   bit, then drives run_inf_gdc over 3 frames at the default capacities
-   (N = 40960);
+   bit, holds and times the KNN kernel on the cloud of a frame at
+   capacities that hold the whole frame (N = 77824; the default ones drop
+   about half of its pseudo-LiDAR points), then drives run_inf_gdc over 3
+   frames at the default capacities (N = 40960);
 7. the refiner (path B, BASELINE config 4: ResNet-18, 640x192, batch 4):
    holds the kernels on the calls of a batch-4 refine step, a whole
    batch-2 refine step through the kernels against all-plain (loss within
@@ -62,8 +64,9 @@ order, it:
    the path that drives it and its bound (the conv rows at the 3xTF32
    rate, see PEAK_TF32_S, with their achieved TFLOP/s), then, last,
    {"ok": true, "device": {...}}. After the build it prints what ptxas
-   reported for the conv kernels and the pool and reprojection-loss
-   backward kernels (registers, spills; PTXAS_KERNELS).
+   reported for the conv kernels, the pool backward, the reprojection-loss
+   forward and backward and the KNN kernels (registers, spills;
+   PTXAS_KERNELS).
 
 Any failed check raises, so the exit code is not 0.
 """
@@ -177,9 +180,13 @@ KERNELS = {
             "fusiondepth_tpu/gdc/pallas_knn.py:106"),
 }
 # source -> the kernels whose registers and spills the ptxas line gives
+# (mangled-name fragments: the KNN at k = 10 and the reprojection forward at
+# C = 3, as GDC and the train step launch them)
 PTXAS_KERNELS = {"conv3x3.cu": ("conv3x3_fwd_kernel", "conv3x3_wgrad_kernel"),
                  "maxpool3x3s2.cu": ("maxpool3x3s2_bwd_kernel",),
-                 "reproj.cu": ("reproj_bwd_kernel",)}
+                 "reproj.cu": ("reproj_bwd_kernel", "reproj_fwd_kernelILi3E"),
+                 "knn.cu": ("knn_partial_kernelILi10E",
+                            "knn_merge_kernelILi10E")}
 FORWARD_KERNELS = ("maxpool3x3s2", "conv3x3_reflect", "conv3x3_zero_act")
 # the kernels of the stage-1 train step
 TRAIN_KERNELS = FORWARD_KERNELS + ("maxpool3x3s2_bwd", "conv3x3_dgrad",
@@ -201,6 +208,11 @@ KNN_DIST_RTOL = 1e-6
 # native size with the default capacities
 REFINE_BATCH, REFINE_FRAMES, GDC_FRAMES = 4, 12, 3
 NATIVE = (375, 1242)
+# GDC's capacities (cap_pl, cap_l): the defaults, which the JAX package sets
+# and a frame of the synthetic drive overflows (about 67.1k-67.7k
+# pseudo-LiDAR points), and capacities that hold a whole frame, with which
+# the KNN is also held and timed (N = 77824)
+GDC_CAPS, WHOLE_FRAME_CAPS = (32768, 8192), (69632, 8192)
 
 
 def emit(**kw):
@@ -567,13 +579,13 @@ def ops_ms(name, args, kwargs) -> float:
     return flops / PEAK_FP32_S * 1e3
 
 
-def time_kernels(calls, path):
+def time_kernels(calls, path, iters=10):
     """Per kernel, summed over its calls: kernel ms, plain ms, the library
     call's ms and the kernel's ms over the calls the library call covers,
     the bound (bytes over the HBM rate or `ops_ms`, the larger, call by
     call), and for the convs the achieved TFLOP/s (call_flops over the
     kernel's ms). Also prints one line per call: its shapes, ms, plain ms
-    and bound."""
+    and bound. A timing takes `iters` launches after 2 to warm up."""
     t = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, library_of_ms=0.0,
                     library_calls=0, calls=0, bound_ms=0.0, bytes_ms=0.0,
                     ops_ms=0.0, flops=0.0) for name in KERNELS}
@@ -581,7 +593,8 @@ def time_kernels(calls, path):
         mod, attr, plain, _, _ = KERNELS[name]
         fn = getattr(mod, attr)
         k, p = paired_ms(lambda: fn(*args, **kwargs),
-                         lambda: plain(*args, **kwargs), iters=10, warmup=2)
+                         lambda: plain(*args, **kwargs), iters=iters,
+                         warmup=2)
         r = t[name]
         r["ms"] += k
         r["plain_ms"] += p
@@ -599,8 +612,8 @@ def time_kernels(calls, path):
              bound_by="bytes" if b_ms >= o_ms else "operations")
         lib = library_call(name, args, kwargs)
         if lib is not None:
-            lib_ms = (cuda_ms(lib, iters=10, warmup=2)
-                      + cuda_ms(lib, iters=10, warmup=2)) / 2
+            lib_ms = (cuda_ms(lib, iters=iters, warmup=2)
+                      + cuda_ms(lib, iters=iters, warmup=2)) / 2
             r["library_ms"] += lib_ms
             r["library_of_ms"] += k
             r["library_calls"] += 1
@@ -975,7 +988,7 @@ def knn_edge_calls(dev):
     rows at the far sentinel, spread along x by index as gdc_correct
     places them; and a ragged N."""
     g = torch.Generator(device=dev).manual_seed(4)
-    N = 32768 + 8192
+    N = sum(GDC_CAPS)
     pts = torch.randn((N, 3), generator=g, device=dev) * 10
     pts[1000:1500] = pts[:500]
     ar = torch.arange(16, device=dev, dtype=torch.float32)
@@ -1067,6 +1080,7 @@ def gdc_phase(dev, tmp, weights):
            for _ in range(2)]
     ktimes["knn"]["cdist_topk_ms"] = sum(lib) / 2
     del calls, edges
+    err["knn"] = max(err["knn"], whole_frame_knn(cfg, root, calib, dev))
 
     # the entry point over every frame
     torch.cuda.synchronize()
@@ -1093,13 +1107,39 @@ def gdc_phase(dev, tmp, weights):
     diff = float(np.abs(kern0 - plain0).max())
     emit(phase="run_inf_gdc", frames=n, seconds=secs,
          ms_per_frame=secs / n * 1e3, launches=launches,
-         native=list(NATIVE), caps=[32768, 8192])
+         native=list(NATIVE), caps=list(GDC_CAPS))
     emit(check="gdc_kernel_vs_plain_knn", frame=0, same_graph=same_graph,
          max_abs_diff=diff)
     # the rest of GDC is deterministic: one neighbour graph, one result
     require(diff == 0.0, f"GDC through the kernel and through plain KNN "
             f"differ by {diff} on the same neighbour graph")
     return err, launches, ktimes, frames
+
+
+def whole_frame_knn(cfg, root, calib, dev) -> float:
+    """The KNN on the cloud of frame 0 at capacities that hold the whole
+    frame (WHOLE_FRAME_CAPS; the default ones drop about half of its
+    pseudo-LiDAR points): held against its plain version (sorted neighbour
+    distances within KNN_DIST_RTOL) and timed. Returns the largest
+    distance error."""
+    calls = []
+    with plain_kernels(record=calls):
+        gdc_one_frame(cfg, root, DRIVE, 0, "l", calib,
+                      *WHOLE_FRAME_CAPS, device=dev)
+    require([c[0] for c in calls] == ["knn"], f"GDC made {calls}")
+    pts = calls[0][1][0]
+    cap_pl = WHOLE_FRAME_CAPS[0]
+    real = pts.abs().amax(1) < 1e7
+    n_pl, n_l = int(real[:cap_pl].sum()), int(real[cap_pl:].sum())
+    require(n_pl < cap_pl, f"frame 0 has {n_pl} pseudo-LiDAR points, more "
+            f"than cap_pl = {cap_pl}")
+    err = check_kernels(calls)["knn"]
+    t = time_kernels(calls, "inf_gdc_whole_frame", iters=3)["knn"]
+    emit(check="knn_whole_frame", points=pts.shape[0], n_pl=n_pl, n_l=n_l,
+         caps=list(WHOLE_FRAME_CAPS), max_abs_dist_err=err, ms=t["ms"],
+         plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+         bound_by=t["bound_by"])
+    return err
 
 
 class RefineFrames(SmokeFrames):

@@ -68,8 +68,8 @@ SIGNATURES = {
     "fd_reproj_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     # warped, target, g, dwarped, N*K, B, C, H, W, stream
     "fd_reproj_bwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # N
-    "fd_knn_splits": (_I,),
+    # N, k
+    "fd_knn_splits": (_I, _I),
     # pts, N, k, part_d, part_i, out, stream
     "fd_knn": (_P, _I, _I, _P, _P, _P, _P),
 }

@@ -17,9 +17,6 @@
 // Shapes: warped (N, K, B, C, H, W), target (B, C, H, W), loss and its
 // cotangent g (N, K, B, H, W), dwarped (N, K, B, C, H, W).
 //
-// Forward: a block owns a 32 x 8 pixel tile of one (n, k, b) plane and
-// stages the tile with its reflected 1-pixel halo in shared memory.
-//
 // Backward, per channel: with a = dL/d(n/d) at each output pixel o, the
 // loss depends on warped p through mu_x = box(p), E[x^2] = box(p^2) and
 // E[xy] = box(p t), so
@@ -42,6 +39,31 @@
 // addressing and masks), so the card's instruction issue rate, not its
 // bytes, is what holds this kernel, and its design cuts the work done
 // again.
+//
+// Forward design. A block of up to FWD_WARPS warps owns one batch element
+// b, a band of FWD_COLS = 62 output columns and a strip of FWD_TH = 32
+// output rows. It stages the target of every channel on the strip's rows
+// with a 1-pixel reflected halo (34 x 64 a channel) and computes its
+// moments mu_y and E[y^2] there once (32 x 64), for all the n * k warps of
+// b. Each warp then streams the rows of one warp's strip (or, where b has
+// fewer than FWD_WARPS warps, as in the identity call's 2, of a slice of
+// it: the block's warps split the strip into 2, 4 or 8 slices, so that
+// the block still runs FWD_WARPS warps). A lane holds 2 adjacent columns
+// of the band and its 1-column halo (64 columns a warp, each column's
+// reflection worked out once). Per output row the warp takes one new row
+// of warped, all C channels, loaded one row ahead; keeps the 3-row
+// windows of p, p^2 and p t of every channel in registers, in three Row
+// slots that rotate instead of being copied; takes the box's horizontal
+// taps from the neighbouring lanes by shuffles; sums the SSIM and L1
+// terms over the channels in registers (the C channels are independent
+// chains, which is what a step's latency wants); and writes the row.
+// Every moment is rounded with tap3, in box3's order, and the SSIM
+// factors as ssim_terms rounds them, so the map is the plain version's up
+// to the channel mean's last rounding, and warped == target gives n == d
+// and a loss of exactly 0. The kernel takes C <= FWD_MAX_C (the windows
+// of every channel are registers): 75 KB of shared memory a block at C = 3,
+// two blocks an SM. The identity call (2 planes a b) reads a quarter of
+// the warp call's bytes; both together are bound at 81 us.
 //
 // Backward design. A block of up to 8 warps owns one batch element b, a
 // band of BWD_COLS = 60 output columns and a strip of BWD_TH = 32 output
@@ -70,9 +92,6 @@
 
 namespace {
 
-constexpr int TX = 32;
-constexpr int TY = 8;
-constexpr int THREADS = TX * TY;
 constexpr float C1 = 0.01f * 0.01f;
 constexpr float C2 = 0.03f * 0.03f;
 
@@ -85,35 +104,9 @@ __device__ __forceinline__ int reflect(int i, int n) {
   return min(max(i, 0), n - 1);
 }
 
-// 3x3 box mean of a staged (rows, cols) field f at (y, x), vertical sums
-// first, each scaled by 1/3
-template <int COLS>
-__device__ __forceinline__ float box(const float* f, int y, int x) {
-  float v0 = (f[(y - 1) * COLS + x - 1] + f[y * COLS + x - 1] +
-              f[(y + 1) * COLS + x - 1]) * third();
-  float v1 = (f[(y - 1) * COLS + x] + f[y * COLS + x] +
-              f[(y + 1) * COLS + x]) * third();
-  float v2 = (f[(y - 1) * COLS + x + 1] + f[y * COLS + x + 1] +
-              f[(y + 1) * COLS + x + 1]) * third();
-  return (v0 + v1 + v2) * third();
-}
-
 struct Moments {
   float mx, my, x2, y2, xy;
 };
-
-template <int COLS>
-__device__ __forceinline__ Moments moments(const float* P, const float* T,
-                                           const float* PP, const float* TT,
-                                           const float* PT, int y, int x) {
-  Moments m;
-  m.mx = box<COLS>(P, y, x);
-  m.my = box<COLS>(T, y, x);
-  m.x2 = box<COLS>(PP, y, x);
-  m.y2 = box<COLS>(TT, y, x);
-  m.xy = box<COLS>(PT, y, x);
-  return m;
-}
 
 // The SSIM factors n = A1 * A2, d = B1 * B2, rounded step by step in the
 // order of ops/planes.py::ssim_planes and without fused multiply-adds, so
@@ -137,64 +130,14 @@ __device__ __forceinline__ Ssim ssim_terms(const Moments& m) {
   return r;
 }
 
-// clip((1 - q) / 2, 0, 1)
-__device__ __forceinline__ float ssim_loss(float q) {
-  return fminf(fmaxf(__fsub_rn(1.f, q) * 0.5f, 0.f), 1.f);
-}
-
-// Stage warped and target of one channel on the tile with a halo of R
-// pixels, reflected at the image border, plus the products p^2, t^2, p*t.
-template <int R>
-__device__ __forceinline__ void stage(const float* __restrict__ p,
-                                      const float* __restrict__ t, int H,
-                                      int W, int y0, int x0, float* P,
-                                      float* T, float* PP, float* TT,
-                                      float* PT) {
-  constexpr int ROWS = TY + 2 * R, COLS = TX + 2 * R;
-  for (int i = threadIdx.x; i < ROWS * COLS; i += THREADS) {
-    const int yy = reflect(y0 - R + i / COLS, H);
-    const int xx = reflect(x0 - R + i % COLS, W);
-    const long long off = (long long)yy * W + xx;
-    const float a = __ldg(p + off), b = __ldg(t + off);
-    P[i] = a;
-    T[i] = b;
-    PP[i] = a * a;
-    TT[i] = b * b;
-    PT[i] = a * b;
-  }
-}
-
-// One block per (plane n*K*B + b, 8-row band, 32-column band).
-__global__ void __launch_bounds__(THREADS)
-    reproj_fwd_kernel(const float* __restrict__ warped,
-                      const float* __restrict__ target,
-                      float* __restrict__ out, int B, int C, int H, int W) {
-  constexpr int R = 1, ROWS = TY + 2, COLS = TX + 2;
-  __shared__ float P[ROWS * COLS], T[ROWS * COLS], PP[ROWS * COLS],
-      TT[ROWS * COLS], PT[ROWS * COLS];
-  const long long plane = blockIdx.z;  // (n * K + k) * B + b
-  const long long b = plane % B;
-  const long long HW = (long long)H * W;
-  const int y0 = blockIdx.y * TY, x0 = blockIdx.x * TX;
-  const int ty = threadIdx.x / TX, tx = threadIdx.x % TX;
-  const int y = y0 + ty, x = x0 + tx;
-  float ssim_sum = 0.f, l1_sum = 0.f;
-  for (int c = 0; c < C; ++c) {
-    const float* p = warped + (plane * C + c) * HW;
-    const float* t = target + (b * C + c) * HW;
-    __syncthreads();
-    stage<R>(p, t, H, W, y0, x0, P, T, PP, TT, PT);
-    __syncthreads();
-    if (y < H && x < W) {
-      const int sy = ty + R, sx = tx + R;
-      const Moments m = moments<COLS>(P, T, PP, TT, PT, sy, sx);
-      ssim_sum += ssim_loss(ssim_terms(m).q);
-      l1_sum += fabsf(T[sy * COLS + sx] - P[sy * COLS + sx]);
-    }
-  }
-  if (y < H && x < W)
-    out[plane * HW + (long long)y * W + x] =
-        0.85f * (ssim_sum / C) + 0.15f * (l1_sum / C);
+// The forward's SSIM term clip((1 - n / d) / 2, 0, 1), taken as
+// (d - n) / 2d with the approximate quotient (2 ulp; d >= C1 C2 > 0): n == d
+// still gives 0 exactly, and the IEEE quotient's instructions leave the
+// forward's step (the backward keeps it for the clip's bounds).
+__device__ __forceinline__ float ssim_loss_fwd(const Ssim& f) {
+  const float n = __fmul_rn(f.A1, f.A2), d = __fmul_rn(f.B1, f.B2);
+  return fminf(fmaxf(__fdividef(__fsub_rn(d, n), __fmul_rn(2.f, d)), 0.f),
+               1.f);
 }
 
 // Weight with which output row o = q + d (d in -1, 0, 1) takes input row q
@@ -272,6 +215,223 @@ __device__ __forceinline__ void hadj(const float (&v)[CPL],
   for (int j = 0; j < CPL; ++j)
     out[j] = w[0][j] * (j ? v[j - 1] : l) + w[1][j] * v[j] +
              w[2][j] * (j + 1 < CPL ? v[j + 1] : r);
+}
+
+// The forward's tiling (see the header): a block of up to FWD_WARPS warps
+// owns one batch element b, a band of FWD_COLS output columns and a strip
+// of FWD_TH output rows; each warp walks the rows of one n * k warp of
+// that b, or of a slice of the strip, a lane holding FWD_CPL adjacent
+// columns of the band and its 1-column halo on either side.
+constexpr int FWD_WARPS = 8;
+constexpr int FWD_CPL = 2;
+constexpr int FWD_SPAN = 32 * FWD_CPL;  // columns x0 - 1 ... x0 + SPAN - 2
+constexpr int FWD_COLS = FWD_SPAN - 2;  // output columns x0 ... x0 + COLS - 1
+constexpr int FWD_TH = 32;
+constexpr int FWD_BLOCKS_PER_SM = 2;
+constexpr int FWD_MAX_C = 4;
+// shared floats a channel: the target on rows y0 - 1 ... y0 + TH, then its
+// moments mu_y and E[y^2] on rows y0 ... y0 + TH - 1
+constexpr int FWD_T_FLOATS = (FWD_TH + 2) * FWD_SPAN;
+constexpr int FWD_M_FLOATS = FWD_TH * FWD_SPAN;
+constexpr int FWD_CH_FLOATS = FWD_T_FLOATS + 2 * FWD_M_FLOATS;
+
+// One input row of a lane's columns in the forward's sliding windows:
+// warped, its square and its product with the target, every channel.
+template <int C>
+struct FwdRow {
+  float p[C][FWD_CPL], pp[C][FWD_CPL], pt[C][FWD_CPL];
+};
+
+template <int C>
+__global__ void __launch_bounds__(FWD_WARPS * 32, FWD_BLOCKS_PER_SM)
+    reproj_fwd_kernel(const float* __restrict__ warped,
+                      const float* __restrict__ target,
+                      float* __restrict__ out, int NK, int B, int H, int W,
+                      int slices) {
+  static_assert(C >= 1 && C <= FWD_MAX_C, "channels");
+  constexpr int CPL = FWD_CPL, SPAN = FWD_SPAN, TH = FWD_TH;
+  extern __shared__ __align__(16) float fwd_smem[];
+  const int b = blockIdx.z;
+  const int y0 = blockIdx.y * TH, x0 = blockIdx.x * FWD_COLS;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const long long HW = (long long)H * W;
+  auto Ts = [&](int c) { return fwd_smem + c * FWD_CH_FLOATS; };
+  auto MY = [&](int c) { return Ts(c) + FWD_T_FLOATS; };
+  auto Y2 = [&](int c) { return Ts(c) + FWD_T_FLOATS + FWD_M_FLOATS; };
+
+  // the target of every channel on the strip's rows y0 - 1 ... y0 + TH,
+  // then its box moments on rows y0 ... y0 + TH - 1, shared by the block's
+  // warps
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const float* t = target + ((long long)b * C + c) * HW;
+    for (int i = threadIdx.x; i < FWD_T_FLOATS; i += blockDim.x) {
+      const int r = reflect(y0 - 1 + i / SPAN, H);
+      Ts(c)[i] = __ldg(t + (long long)r * W + reflect(x0 - 1 + i % SPAN, W));
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    for (int i = threadIdx.x; i < FWD_M_FLOATS; i += blockDim.x) {
+      const int s = i % SPAN;
+      float my = 0.f, y2 = 0.f;
+      if (s >= 1 && s <= SPAN - 2) {
+        const float* a = Ts(c) + i;  // rows y0 - 1 + i / SPAN and the 2 below
+        float v[3], q[3];
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+          const float t0 = a[d - 1], t1 = a[SPAN + d - 1],
+                      t2 = a[2 * SPAN + d - 1];
+          v[d] = tap3(t0, t1, t2);
+          q[d] = tap3(sq(t0), sq(t1), sq(t2));
+        }
+        my = tap3(v[0], v[1], v[2]);
+        y2 = tap3(q[0], q[1], q[2]);
+      }
+      MY(c)[i] = my;
+      Y2(c)[i] = y2;
+    }
+  }
+  __syncthreads();
+
+  // this lane's columns: where they are read from (reflected once, here)
+  // and whether their output (span columns 1 ... SPAN - 2) is in the image
+  int xr[CPL], xs[CPL];
+  bool oval[CPL];
+#pragma unroll
+  for (int j = 0; j < CPL; ++j) {
+    const int s = CPL * lane + j, x = x0 - 1 + s;
+    xs[j] = x;
+    xr[j] = reflect(x, W);
+    oval[j] = s >= 1 && s <= SPAN - 2 && x < W;
+  }
+  const int rows = TH / slices;
+  const float inv_c = 1.f / C;
+
+  for (int task = warp; task < NK * slices; task += nwarps) {
+    const int jp = task / slices;
+    const int ys = y0 + (task % slices) * rows;
+    const int ye = min(min(ys + rows, y0 + TH), H);
+    if (ys >= ye) continue;  // the slice lies below the image
+    const long long plane = (long long)jp * B + b;  // (n * K + k) * B + b
+    const float* p = warped + plane * C * HW;
+    float* orow = out + plane * HW;
+
+    // warped at image row `row`, every channel
+    auto fetch = [&](int row, float (&pv)[C][CPL]) {
+      const float* src = p + (long long)reflect(row, H) * W;
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) pv[c][j] = __ldg(src + c * HW + xr[j]);
+    };
+    // p^2 and p t of image row `row`
+    auto products = [&](int row, FwdRow<C>& x) {
+      const int ti = (row - y0 + 1) * SPAN + CPL * lane;
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) {
+          x.pp[c][j] = sq(x.p[c][j]);
+          x.pt[c][j] = __fmul_rn(x.p[c][j], Ts(c)[ti + j]);
+        }
+    };
+    // the next step's row of warped, loaded one step ahead so that its
+    // latency overlaps a step's arithmetic
+    float pn[C][CPL];
+
+    // Step s: the input row r + 1 (r = ys + s) enters `cur`, and output row
+    // r is computed from the windows of rows r - 1 (older), r (old) and
+    // r + 1 (cur). The three FwdRows rotate over the steps.
+    auto step = [&](int s, const FwdRow<C>& older, const FwdRow<C>& old,
+                    FwdRow<C>& cur) {
+      const int r = ys + s;
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) cur.p[c][j] = pn[c][j];
+      fetch(r + 2, pn);
+      products(r + 1, cur);
+      const int mi = (r - y0) * SPAN + CPL * lane;
+      const int ti = mi + SPAN;  // the target at row r
+      float ssim_sum[CPL], l1_sum[CPL];
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) ssim_sum[j] = l1_sum[j] = 0.f;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        float v[CPL], vv[CPL], vt[CPL];
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) {
+          v[j] = tap3(older.p[c][j], old.p[c][j], cur.p[c][j]);
+          vv[j] = tap3(older.pp[c][j], old.pp[c][j], cur.pp[c][j]);
+          vt[j] = tap3(older.pt[c][j], old.pt[c][j], cur.pt[c][j]);
+        }
+        float mx[CPL], x2[CPL], xy[CPL];
+        hbox<CPL>(v, mx);
+        hbox<CPL>(vv, x2);
+        hbox<CPL>(vt, xy);
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) {
+          Moments m;
+          m.mx = mx[j];
+          m.my = MY(c)[mi + j];
+          m.x2 = x2[j];
+          m.y2 = Y2(c)[mi + j];
+          m.xy = xy[j];
+          ssim_sum[j] = __fadd_rn(ssim_sum[j], ssim_loss_fwd(ssim_terms(m)));
+          l1_sum[j] = __fadd_rn(
+              l1_sum[j], fabsf(__fsub_rn(Ts(c)[ti + j], old.p[c][j])));
+        }
+      }
+      // the channel means as torch's mean rounds them on the card: the
+      // sum times float32(1 / C)
+#pragma unroll
+      for (int j = 0; j < CPL; ++j)
+        if (oval[j])
+          orow[(long long)r * W + xs[j]] =
+              __fadd_rn(__fmul_rn(0.85f, __fmul_rn(ssim_sum[j], inv_c)),
+                        __fmul_rn(0.15f, __fmul_rn(l1_sum[j], inv_c)));
+    };
+
+    FwdRow<C> r0, r1, r2;  // input rows ys - 1 and ys in r0 and r1
+    fetch(ys - 1, r0.p);
+    fetch(ys, r1.p);
+    products(ys - 1, r0);
+    products(ys, r1);
+    fetch(ys + 1, pn);
+    const int steps = ye - ys;
+    for (int s = 0; s < steps; s += 3) {
+      step(s, r0, r1, r2);
+      if (s + 1 < steps) step(s + 1, r1, r2, r0);
+      if (s + 2 < steps) step(s + 2, r2, r0, r1);
+    }
+  }
+}
+
+template <int C>
+int launch_fwd(const float* warped, const float* target, float* out, int NK,
+               int B, int H, int W, cudaStream_t stream) {
+  constexpr int smem = C * FWD_CH_FLOATS * (int)sizeof(float);
+  static bool sized = false;  // the opt-in above 48 KB, once per C
+  if (!sized) {
+    const int err = (int)cudaFuncSetAttribute(
+        reproj_fwd_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err) return err;
+    sized = true;
+  }
+  // slices of a strip a warp walks: enough that the block runs FWD_WARPS
+  // warps where b has fewer n * k warps (a power of two, so rows divide)
+  int slices = 1;
+  while (slices * 2 * NK <= FWD_WARPS) slices *= 2;
+  const dim3 grid((W + FWD_COLS - 1) / FWD_COLS, (H + FWD_TH - 1) / FWD_TH,
+                  B);
+  const int threads = 32 * min(NK * slices, FWD_WARPS);
+  reproj_fwd_kernel<C><<<grid, threads, smem, stream>>>(
+      warped, target, out, NK, B, H, W, slices);
+  return (int)cudaGetLastError();
 }
 
 __global__ void __launch_bounds__(BWD_WARPS * 32, BWD_BLOCKS_PER_SM)
@@ -473,14 +633,28 @@ __global__ void __launch_bounds__(BWD_WARPS * 32, BWD_BLOCKS_PER_SM)
 }  // namespace
 
 // warped (N, K, B, C, H, W), target (B, C, H, W) -> out (N, K, B, H, W).
-// H, W >= 2. Launches on `stream`; returns cudaGetLastError().
+// H, W >= 2, 1 <= C <= FWD_MAX_C. One block per (band of FWD_COLS columns,
+// strip of FWD_TH rows, b). Launches on `stream`; returns
+// cudaGetLastError().
 extern "C" int fd_reproj_fwd(const void* warped, const void* target,
                              void* out, int NK, int B, int C, int H, int W,
                              void* stream) {
-  const dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY, NK * B);
-  reproj_fwd_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)warped, (const float*)target, (float*)out, B, C, H, W);
-  return (int)cudaGetLastError();
+  const float* w = (const float*)warped;
+  const float* t = (const float*)target;
+  float* o = (float*)out;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (C) {
+    case 1:
+      return launch_fwd<1>(w, t, o, NK, B, H, W, st);
+    case 2:
+      return launch_fwd<2>(w, t, o, NK, B, H, W, st);
+    case 3:
+      return launch_fwd<3>(w, t, o, NK, B, H, W, st);
+    case 4:
+      return launch_fwd<4>(w, t, o, NK, B, H, W, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // g (N, K, B, H, W) -> dwarped (N, K, B, C, H, W). One block per (band of

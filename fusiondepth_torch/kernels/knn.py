@@ -72,7 +72,9 @@ def knn(points: torch.Tensor, k: int = 10) -> torch.Tensor:
     name = "knn"
     check_cuda_f32(name, points=points)
     lib = build.load()
-    splits = lib.fd_knn_splits(N)
+    splits = lib.fd_knn_splits(N, k)
+    if splits < 1:
+        raise RuntimeError(f"fd_knn_splits: no split count for N={N}, k={k}")
     part_d = torch.empty((splits, N, k), device=points.device,
                          dtype=torch.float32)
     part_i = torch.empty((splits, N, k), device=points.device,

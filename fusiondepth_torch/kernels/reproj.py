@@ -7,7 +7,8 @@ Per pixel, 0.85 * clip((1 - SSIM) / 2, 0, 1) + 0.15 * |warped - target|,
 averaged over C, SSIM over reflect-padded 3x3 box means: the function of
 `ops/planes.py::reprojection_loss_planes`, which is the plain version.
 Unlike the TPU kernel, which needs H to be a multiple of its 16-row
-blocks, the kernel takes any H, W >= 2. Bound by bytes.
+blocks, the kernels take any H, W >= 2; the forward kernel takes at most
+MAX_FWD_CHANNELS channels (the images are RGB). Bound by bytes.
 
 Shapes: warped (n, k, B, C, H, W); target (B, C, H, W); the loss map
 (n, k, B, H, W). `reproj_loss` is the differentiable op: the gradient goes
@@ -23,6 +24,7 @@ from fusiondepth_torch.kernels import LAUNCHES, build, check_cuda_f32, \
 from fusiondepth_torch.ops.planes import reprojection_loss_planes
 
 MAX_PLANES = 65535  # n * k * B: the kernels' grid z
+MAX_FWD_CHANNELS = 4  # the forward kernel keeps every channel's windows
 
 
 def reproj_plain(warped: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -41,7 +43,7 @@ def reproj_bwd_plain(warped: torch.Tensor, target: torch.Tensor,
     return dw
 
 
-def _check(name, warped, target):
+def _check(name, warped, target, max_channels=None):
     if warped.dim() != 6 or target.dim() != 4 or \
             warped.shape[2:] != target.shape or 0 in warped.shape:
         raise ValueError(f"{name}: warped {tuple(warped.shape)} does not fit "
@@ -53,6 +55,9 @@ def _check(name, warped, target):
     if n * k * B > MAX_PLANES:
         raise ValueError(f"{name}: {n * k * B} (n, k, B) planes, at most "
                          f"{MAX_PLANES}")
+    if max_channels is not None and C > max_channels:
+        raise ValueError(f"{name}: {C} channels, the kernel takes at most "
+                         f"{max_channels}")
     return n, k, B, C, H, W
 
 
@@ -63,7 +68,7 @@ def reproj_fwd(warped: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
         return reproj_plain(warped, target)
     name = "reproj"
     check_cuda_f32(name, warped=warped, target=target)
-    n, k, B, C, H, W = _check(name, warped, target)
+    n, k, B, C, H, W = _check(name, warped, target, MAX_FWD_CHANNELS)
     out = torch.empty((n, k, B, H, W), device=warped.device,
                       dtype=torch.float32)
     with on_card(warped) as stream:

@@ -23,6 +23,8 @@ port's resize in place of cv2's (3e-6 relative apart).
 
 import functools
 import os
+import re
+from fractions import Fraction
 
 import numpy as np
 import pytest
@@ -36,6 +38,7 @@ from fusiondepth_tpu.gdc import gdc as jgdc
 from fusiondepth_tpu.training import gdc_driver as jdriver
 from fusiondepth_torch.config import Config
 from fusiondepth_torch.gdc import gdc
+from fusiondepth_torch.kernels import build
 from fusiondepth_torch.kernels import knn as knn_kernel
 from fusiondepth_torch.ops.resize import resize_linear_np
 from fusiondepth_torch.training import gdc_driver
@@ -74,6 +77,170 @@ def test_plain_knn_matches_knn_brute():
     # with the same distances and ties to the lower index, the same rows
     np.testing.assert_array_equal(got[valid], want[valid])
     assert (got[valid] < len(pts) - n_pad).all()
+
+
+# ---- the KNN kernel's arithmetic and schedule, modelled ----
+# The CUDA kernel cannot run here; these hold its arithmetic (the products
+# taken with 2q) and its schedule (queries a thread, point ranges, the
+# seeded bound, the self test in the insert path, the merge), written in
+# torch ops with the kernel's own constants, to the plain version that
+# chip_smoke.py holds the kernel to on the card, and to the JAX knn_brute.
+
+def _knn_constants(*names):
+    text = (build.CSRC / "knn.cu").read_text()
+    return [int(re.search(rf"constexpr int {n} = (\d+);", text).group(1))
+            for n in names]
+
+
+def _insert(bd, bi, rows, d, j):
+    """knn.cu::insert on the rows `rows` of the (N, K) lists: (d, j) into
+    the last slot, then bubbled ahead past strictly larger distances."""
+    K = bd.shape[1]
+    bd[rows, K - 1] = d
+    bi[rows, K - 1] = j
+    for k in range(K - 1, 0, -1):
+        a, b = bd[rows, k], bd[rows, k - 1]
+        ia, ib = bi[rows, k], bi[rows, k - 1]
+        sw = a < b
+        bd[rows, k - 1] = torch.where(sw, a, b)
+        bi[rows, k - 1] = torch.where(sw, ia, ib)
+        bd[rows, k] = torch.where(sw, b, a)
+        bi[rows, k] = torch.where(sw, ib, ia)
+
+
+def _knn_scheduled(points, k, S):
+    """knn_partial_kernel + knn_merge_kernel over S point ranges, in
+    float32: squared distances from 2q through the float64-then-round
+    `_fma`; each query's list seeded just above its k-th smallest distance
+    to its SEED_PER_K * k index neighbours; tiles padded with NaN points to
+    the UNROLL points of a step; a query takes the insert path for the
+    step's points together when any distance is below its k-th (the points
+    then inserted in index order, the self test inside); then the ranges'
+    lists merged in range order."""
+    TILE, UNROLL, SEED_PER_K = _knn_constants("TILE", "UNROLL",
+                                              "SEED_PER_K")
+    fma = knn_kernel._fma
+    N = points.shape[0]
+    p = points.float()
+    sq, two = knn_kernel._sqnorm(p), 2 * p
+
+    def dist(q, c, csq):  # aligned query and point rows
+        qc2 = fma(two[q, 2], c[..., 2], fma(two[q, 1], c[..., 1],
+                                           two[q, 0] * c[..., 0]))
+        return (sq[q] - qc2) + csq
+
+    qs = torch.arange(N)
+    m = min(SEED_PER_K * k, N - 1)
+    lo = torch.clamp(qs - m // 2, 0, N - 1 - m)
+    win = lo[:, None] + torch.arange(m + 1)
+    d = dist(qs[:, None], p[win], sq[win])
+    d = torch.where((win == qs[:, None]) | d.isnan(), torch.inf, d)
+    tau = torch.sort(d, 1)[0][:, k - 1]
+    bound = torch.nextafter(tau, torch.tensor(torch.inf))
+
+    chunk = -(-N // S)
+    part_d, part_i = [], []
+    int_max = torch.iinfo(torch.int32).max
+    for s in range(S):
+        bd = bound[:, None].repeat(1, k)
+        bi = torch.full((N, k), int_max, dtype=torch.int64)
+        r0, r1 = s * chunk, min(N, (s + 1) * chunk)
+        for t0 in range(r0, r1, TILE):
+            n = min(TILE, r1 - t0)
+            for j0 in range(t0, t0 + -(-n // UNROLL) * UNROLL, UNROLL):
+                js = range(j0, j0 + UNROLL)
+                d = [dist(qs, p[j], sq[j]) if j < t0 + n
+                     else torch.full((N,), float("nan")) for j in js]
+                # compared with the k-th distances as they stand before
+                hit = torch.stack([dj < bd[:, k - 1] for dj in d], 1).any(1)
+                for j, dj in zip(js, d):
+                    rows = hit & (dj < bd[:, k - 1]) & (qs != j)
+                    _insert(bd, bi, rows, dj[rows], j)
+        part_d.append(bd)
+        part_i.append(bi)
+
+    bd = torch.full((N, k), torch.inf)
+    bi = torch.full((N, k), int_max, dtype=torch.int64)
+    for s in range(S):
+        alive = torch.ones(N, dtype=torch.bool)
+        for kk in range(k):
+            d = part_d[s][:, kk]
+            alive &= d < bd[:, k - 1]  # the rest of the list is no better
+            _insert(bd, bi, alive, d[alive], part_i[s][alive, kk])
+    return bi.to(torch.int32)
+
+
+def _tied_cloud():
+    """About 300 points: a raster-like half sorted along x (index
+    neighbours near in space, so the seeded bound is tight), a random half
+    (a loose bound), six points at exactly distance 1 around a point far
+    from the rest (exact ties: every term of d^2 is an integer), 15
+    duplicated points (exact zero distances) and 30 rows at the far
+    sentinel, spread along x by index as gdc_correct places them."""
+    rng = np.random.default_rng(7)
+    pts = (rng.normal(size=(301, 3)) * 3).astype(np.float32)
+    pts[:150] = pts[:150][np.argsort(pts[:150, 0])]
+    pts[160] = 50.0
+    pts[161:167] = 50.0 + np.array([[1, 0, 0], [-1, 0, 0], [0, 1, 0],
+                                    [0, -1, 0], [0, 0, 1], [0, 0, -1]])
+    pts[200:215] = pts[30:45]
+    n_pad = 30
+    pts[-n_pad:] = 1e8
+    pts[-n_pad:, 0] += np.arange(len(pts) - n_pad, len(pts))
+    valid = np.arange(len(pts)) < len(pts) - n_pad
+    return pts, valid
+
+
+@pytest.mark.parametrize("k, S", [(10, 3), (10, 7), (16, 2)])
+def test_knn_kernel_schedule_matches_plain_and_knn_brute(k, S):
+    """The kernel's schedule gives the plain version's indices on every
+    row, sentinel rows included (both round d^2 alike), and JAX
+    knn_brute's on the real rows; with S ranges that do not divide N."""
+    pts, valid = _tied_cloud()
+    got = _knn_scheduled(torch.from_numpy(pts), k, S)
+    want = knn_kernel.knn_plain(torch.from_numpy(pts), k)
+    assert torch.equal(got, want)
+    jax_idx = np.asarray(jgdc.knn_brute(jnp.asarray(pts), jnp.asarray(valid),
+                                        k=k, block=128))
+    np.testing.assert_array_equal(got.numpy()[valid], jax_idx[valid])
+    # the six exact ties come in index order
+    assert got[160, :6].tolist() == list(range(161, 167))
+
+
+def _f32_nearest(x: Fraction) -> np.float32:
+    """x rounded once to float32, to nearest, ties to even."""
+    f = np.float32(float(x))
+    cands = [np.nextafter(f, np.float32(-np.inf)), f,
+             np.nextafter(f, np.float32(np.inf))]
+    return min(cands, key=lambda c: (abs(Fraction(float(c)) - x),
+                                     int(c.view(np.int32)) & 1))
+
+
+def _fma32(a, b, c):
+    """A true float32 fused multiply-add: a * b + c exactly, rounded once."""
+    return _f32_nearest(Fraction(float(a)) * Fraction(float(b))
+                        + Fraction(float(c)))
+
+
+def test_doubled_query_products_are_twice_the_dot_bit_for_bit():
+    """fma(2q2, c2, fma(2q1, c1, 2q0 c0)), the kernel's products, is
+    2 (q.c) with q.c = fma(q2, c2, fma(q1, c1, q0 c0)), bit for bit, with
+    true float32 fmas: on random metre-scale coordinates, on zeros of
+    both signs, powers of two, exact halves and GDC's sentinels."""
+    rng = np.random.default_rng(9)
+    edge = np.array([0.0, -0.0, 1.0, -2.0, 0.5, 1e8, 1e8 + 40959,
+                     -1e-3, 3.0e-2, 80.0, 1.5, 0.1], np.float32)
+    q = np.concatenate([rng.normal(size=(150, 3)) * 20,
+                        rng.choice(edge, (60, 3))]).astype(np.float32)
+    c = np.concatenate([rng.normal(size=(150, 3)) * 20,
+                        rng.choice(edge, (60, 3))]).astype(np.float32)
+    two = np.float32(2.0)
+    for qi, ci in zip(q, c):
+        dot = _fma32(qi[2], ci[2], _fma32(qi[1], ci[1], qi[0] * ci[0]))
+        q2 = two * qi
+        got = _fma32(q2[2], ci[2], _fma32(q2[1], ci[1], q2[0] * ci[0]))
+        assert np.array_equal(np.float32(two * dot).view(np.int32),
+                              np.float32(got).view(np.int32)), (qi, ci)
 
 
 def test_lle_weights_match_jax():

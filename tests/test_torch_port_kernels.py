@@ -833,3 +833,120 @@ def test_reproj_backward_streamed_schedule_matches_plain_f64(shape):
     assert not got.isnan().any()
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-12,
                                rtol=0)
+
+
+def _reproj_fwd_streamed(warped, target):
+    """reproj_fwd_kernel's schedule in the input's dtype: per band of
+    SPAN - 2 output columns (a warp's SPAN columns with a 1-column halo,
+    each reflected once) and strip of TH rows, the target's moments staged
+    on the strip's rows; the strip cut into slices where b has fewer than
+    FWD_WARPS warps, each slice's rows streamed through 3-row windows of
+    p, p^2 and p t of every channel; the SSIM term as (d - n) / 2d, the
+    channel sums in order, times 1 / C."""
+    WARPS, CPL, TH = _cu_constants("reproj.cu", "FWD_WARPS", "FWD_CPL",
+                                   "FWD_TH")
+    SPAN = 32 * CPL
+    n, k, B, C, H, W = warped.shape
+    NK = n * k
+    w = warped.reshape(NK, B, C, H, W)
+    # the plain version's constants; 1/3 is float32's, as in the kernel
+    C1, C2, third = 0.01 ** 2, 0.03 ** 2, float(np.float32(1.0 / 3.0))
+    inv_c = 1.0 / C  # rounded to the input's dtype, as the kernel's 1.f / C
+
+    def tap3(a, b, c):
+        return (a + b + c) * third
+
+    def hbox(v):
+        out = torch.zeros_like(v)
+        out[..., 1:-1] = tap3(v[..., :-2], v[..., 1:-1], v[..., 2:])
+        return out
+
+    slices = 1
+    while slices * 2 * NK <= WARPS:
+        slices *= 2
+    rows = TH // slices
+    out = torch.full((NK, B, H, W), float("nan"), dtype=warped.dtype)
+    cols = np.arange(SPAN)
+    for y0 in range(0, H, TH):
+        for x0 in range(0, W, SPAN - 2):
+            xs = x0 - 1 + cols
+            xr = _reflect_np(xs, W)
+            oval = (cols >= 1) & (cols <= SPAN - 2) & (xs < W)
+
+            def row(a, i):  # image row i at the band's columns
+                return a[..., int(_reflect_np(i, H)), :][..., xr]
+
+            T = {i: row(target, i) for i in range(y0 - 1, y0 + TH + 1)}
+            MY = {o: hbox(tap3(T[o - 1], T[o], T[o + 1]))
+                  for o in range(y0, y0 + TH)}
+            Y2 = {o: hbox(tap3(T[o - 1] ** 2, T[o] ** 2, T[o + 1] ** 2))
+                  for o in range(y0, y0 + TH)}
+            for sl in range(slices):
+                ys = y0 + sl * rows
+                ye = min(ys + rows, y0 + TH, H)
+                P = {i: row(w, i) for i in range(ys - 1, ye + 1)}
+                for r in range(ys, ye):
+                    pa, pb, pc = P[r - 1], P[r], P[r + 1]
+                    mx = hbox(tap3(pa, pb, pc))
+                    x2 = hbox(tap3(pa * pa, pb * pb, pc * pc))
+                    xy = hbox(tap3(pa * T[r - 1], pb * T[r], pc * T[r + 1]))
+                    my, y2 = MY[r], Y2[r]
+                    num = (2 * mx * my + C1) * (2 * (xy - mx * my) + C2)
+                    den = (mx * mx + my * my + C1) * \
+                        ((x2 - mx * mx) + (y2 - my * my) + C2)
+                    ssim = torch.clamp((den - num) / (2 * den), 0.0, 1.0)
+                    l1 = (T[r] - pb).abs()
+                    s_sum = l_sum = 0.0
+                    for c in range(C):
+                        s_sum = s_sum + ssim[..., c, :]
+                        l_sum = l_sum + l1[..., c, :]
+                    val = 0.85 * (s_sum * inv_c) + 0.15 * (l_sum * inv_c)
+                    out[..., r, xs[oval]] = val[..., oval]
+    return out.reshape(n, k, B, H, W)
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 1, 3, 37, 70),
+                                   (2, 1, 2, 3, 45, 130), (1, 2, 1, 3, 2, 2),
+                                   (1, 1, 2, 3, 20, 2)],
+                         ids=["ragged", "identity", "H2W2", "W2"])
+def test_reproj_forward_streamed_schedule_matches_plain_f64(shape):
+    """Strips and bands that do not divide H and W (two of each, the last
+    ragged), an identity-shaped call (2 warps a batch element, so the
+    strip is cut into slices; three strips, the last ragged), H = W = 2,
+    and W = 2 with one warp (8 slices), one warp equal to the target."""
+    r = np.random.RandomState(8)
+    n, k, B, C, H, W = shape
+    warped = torch.from_numpy(r.rand(*shape))
+    target = torch.from_numpy(r.rand(B, C, H, W))
+    warped[-1, -1, -1] = target[-1]
+    got = _reproj_fwd_streamed(warped, target)
+    assert not got.isnan().any()
+    np.testing.assert_allclose(got.numpy(),
+                               reproj.reproj_plain(warped, target).numpy(),
+                               atol=1e-12, rtol=0)
+
+
+def test_reproj_forward_tap3_moments_give_zero_where_warped_is_target():
+    """In float32, moments rounded step by step in box3's order give
+    n == d, so a loss of exactly 0, where warped == target: on a whole
+    plane, and inside a patch wherever the 3x3 window lies in it; and the
+    map within 1e-6 of the float32 plain version elsewhere."""
+    r = np.random.RandomState(9)
+    warped = torch.from_numpy(r.rand(2, 4, 2, 3, 40, 70).astype(np.float32))
+    target = torch.from_numpy(r.rand(2, 3, 40, 70).astype(np.float32))
+    warped[1, 3, 1] = target[1]
+    warped[0, 0, 0, :, 5:20, 10:30] = target[0, :, 5:20, 10:30]
+    got = _reproj_fwd_streamed(warped, target)
+    assert torch.equal(got[1, 3, 1], torch.zeros(40, 70))
+    assert torch.equal(got[0, 0, 0, 6:19, 11:29], torch.zeros(13, 18))
+    np.testing.assert_allclose(got.numpy(),
+                               reproj.reproj_plain(warped, target).numpy(),
+                               atol=1e-6, rtol=0)
+
+
+def test_reproj_forward_refuses_more_channels_than_it_keeps():
+    C = reproj.MAX_FWD_CHANNELS + 1
+    w = torch.zeros(1, 1, 1, C, 4, 8, device="meta")
+    t = torch.zeros(1, C, 4, 8, device="meta")
+    with pytest.raises(ValueError, match="at most"):
+        reproj._check("reproj", w, t, reproj.MAX_FWD_CHANNELS)
