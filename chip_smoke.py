@@ -20,6 +20,8 @@ order, it:
    backward, against its plain version on the inputs a batch-2 and a
    batch-12 train step record and on the edge cases of `edge_calls`
    (ties, NaN, odd and ragged sizes, border and far-out warp coordinates,
+   warps of W odd, W = 1, 2, 3 with H = 1 and inputs not 8-byte
+   aligned),
    a positive BN shift; for the fused reprojection loss H no multiple of
    16, W = 2, H = 2, warped == target): the pools exactly, the warp at
    atol 1e-5, the convs and dgrad at atol and rtol 1e-4, wgrad to 1e-3 of
@@ -46,9 +48,9 @@ order, it:
    holds the kernels on the calls of a batch-4 refine step, a whole
    batch-2 refine step through the kernels against all-plain (loss within
    1e-5, each refine2d gradient leaf against a float64 step as in 5),
-   drives
-   Refiner.run_epoch over 12 frames carrying inf_gdc (3 steps at batch 4)
-   requiring every kernel of the step, saves and reloads the refine
+   drives Refiner.run_epoch over 12 frames carrying inf_gdc (3 steps at
+   batch 4) requiring every kernel of the step, times the warp calls of
+   the batch-4 step (`timing_call` lines), saves and reloads the refine
    checkpoint, and runs evaluate with refine_2d and with refine_2d and
    eval_gdc over the drive's frames;
 8. times each kernel against its plain version (and one PyTorch call that
@@ -64,9 +66,9 @@ order, it:
    the path that drives it and its bound (the conv rows at the 3xTF32
    rate, see PEAK_TF32_S, with their achieved TFLOP/s), then, last,
    {"ok": true, "device": {...}}. After the build it prints what ptxas
-   reported for the conv kernels, the pool backward, the reprojection-loss
-   forward and backward and the KNN kernels (registers, spills;
-   PTXAS_KERNELS).
+   reported for the conv kernels, the pool backward, the warp forward and
+   backward, the reprojection-loss forward and backward and
+   the KNN kernels (registers, spills; PTXAS_KERNELS).
 
 Any failed check raises, so the exit code is not 0.
 """
@@ -184,6 +186,7 @@ KERNELS = {
 # C = 3, as GDC and the train step launch them)
 PTXAS_KERNELS = {"conv3x3.cu": ("conv3x3_fwd_kernel", "conv3x3_wgrad_kernel"),
                  "maxpool3x3s2.cu": ("maxpool3x3s2_bwd_kernel",),
+                 "warp.cu": ("warp_fwd_kernel", "warp_bwd_kernel"),
                  "reproj.cu": ("reproj_bwd_kernel", "reproj_fwd_kernelILi3E"),
                  "knn.cu": ("knn_partial_kernelILi10E",
                             "knn_merge_kernelILi10E")}
@@ -323,7 +326,10 @@ def edge_calls(dev):
     second input (cat2end), 2x2 and 1x1 maps, and a positive BN shift,
     whose relu must not leak into the zero pad; warp coordinates exactly
     on the image border and displacements far beyond +-128 px, on a ragged
-    H x W; and those of `reproj_edge_calls`."""
+    H x W, single-row warps of W = 1, 2, 3, every coordinate on the last
+    column and row, and inputs that are views at an odd float offset into
+    a larger buffer (contiguous, not 8-byte aligned); and those of
+    `reproj_edge_calls`."""
     g = torch.Generator(device=dev).manual_seed(1)
 
     def randn(*shape, scale=1.0):
@@ -375,8 +381,35 @@ def edge_calls(dev):
     iy[1, 1, 1, :3] = 0.0
     iy[1, 1, 1, -3:] = H - 1.0
     src = torch.rand((n, B, C, H, W), generator=g, device=dev)
-    calls += [("warp", [ix, iy, src], {}),
-              ("warp_bwd", [ix, iy, src, randn(n, k, B, C, H, W)], {})]
+    warps = [(ix, iy, src)]
+    for W in (1, 2, 3):  # H = 1: one row
+        ix = (torch.arange(W, device=dev) + 2 * randn(n, k, B, 1, W)).clamp(
+            0, W - 1)
+        warps.append((ix, torch.zeros_like(ix),
+                      torch.rand((n, B, C, 1, W), generator=g, device=dev)))
+    H, W = 9, 26
+    last = torch.ones((n, k, B, H, W), device=dev)
+    warps.append((last * (W - 1), last * (H - 1),
+                  torch.rand((n, B, C, H, W), generator=g, device=dev)))
+
+    def odd_view(t):  # contiguous, one float past an aligned start
+        buf = torch.empty(t.numel() + 1, device=dev)
+        buf[1:] = t.flatten()
+        return buf[1:].view(t.shape)
+
+    H, W = 12, 40
+    ix = (torch.arange(W, device=dev) + 3 * randn(n, k, B, H, W)).clamp(
+        0, W - 1)
+    iy = (torch.arange(H, device=dev)[:, None] + 3 * randn(n, k, B, H, W)
+          ).clamp(0, H - 1)
+    warps.append(tuple(map(odd_view, (
+        ix, iy, torch.rand((n, B, C, H, W), generator=g, device=dev)))))
+    for ix, iy, src in warps:
+        gw = randn(*ix.shape[:3], C, *ix.shape[3:])
+        if ix.data_ptr() % 8:
+            gw = odd_view(gw)
+        calls += [("warp", [ix, iy, src], {}),
+                  ("warp_bwd", [ix, iy, src, gw], {})]
     return calls + reproj_edge_calls(dev)
 
 
@@ -1190,6 +1223,8 @@ def refine_phase(dev, tmp, weights, tree_frames):
     nets.zero_grad(set_to_none=True)
     err = check_kernels(calls)
     emit_checks(err, calls, [], "refine")
+    time_kernels([c for c in calls if c[0] in ("warp", "warp_bwd")],
+                 "refine_batch4")
     del calls
 
     # a whole batch-2 step through the kernels against all-plain, both

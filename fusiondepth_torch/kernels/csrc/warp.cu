@@ -9,8 +9,8 @@
 // has no fast per-element gather, so those kernels rebuild the sample as
 // one-hot matmuls (or lane crossbars) over a band of +-128 source columns
 // and a 16-row window, and clamp outside it. On Hopper a gather is an
-// address: one thread per output pixel reads its four taps directly, so
-// this kernel is exact for any displacement.
+// address: each thread reads its pixels' four taps directly, so this
+// kernel is exact for any displacement.
 //
 // Inputs are pixel coordinates ix, iy (n_src, n_scales, B, H, W), already
 // clamped to [0, W-1] x [0, H-1] (ops/warp.py), and sources
@@ -18,27 +18,58 @@
 // fusiondepth_tpu/ops/warp.py::warp_planes_xla: x0 = floor(ix),
 // x1 = min(x0 + 1, W - 1), wx = ix - x0, likewise in y.
 //
-// Backward: d/dix and d/diy, summed over C. The source cotangent is zero
-// by design (the sources are input frames); the wrapper refuses sources
-// that need a gradient.
+// Backward: d/dix and d/diy, summed over C in the order c = 0 ... C - 1.
+// The source cotangent is zero by design (the sources are input frames);
+// the wrapper refuses sources that need a gradient.
 //
 // Bound: bytes. At 640x192, batch 12, 2 sources x 4 scales (11.8M output
 // pixels), the forward reads 2 x 47 MB of coordinates and 35 MB of frames
 // and writes 142 MB (271 MB, 81 us at 3.35 TB/s); the backward reads the
 // coordinates, the frames and the 142 MB cotangent and writes 2 x 47 MB
 // (366 MB, 109 us). It does 8 multiply-adds per pixel and channel, far
-// below the compute roof. Adjacent threads own adjacent output columns, so
-// coordinate, output and (near-identity) tap accesses coalesce; the four
-// scales of one frame read the same source plane again, from L2 when it
-// is still there.
+// below the compute roof.
+//
+// Design. A block owns one (n, b) (blockIdx.z = n B + b), WARP_ROWS rows
+// (a warp each) and 32 WARP_COLS columns of the output plane, and runs the
+// K scales one after another: the scales' taps of a tile lie close
+// together, so the source neighbourhood comes from device memory once and
+// the other scales find it in L1 or L2. (A grid over (n, k, b, pixel) would
+// come back to a 1.47 MB source plane only after the other batch elements'
+// planes and 142 MB of output had streamed through the 50 MB L2.) Offsets
+// are 32-bit products of block and thread indices within a plane, plus
+// 64-bit plane bases computed once; nothing divides by a run-time value.
+// A thread owns WARP_COLS columns 32 apart, each with its own bounds check,
+// so a warp's every access of the coordinates, the cotangent and the
+// outputs is 128 contiguous bytes whatever W and the pointers' alignment;
+// the taps stay scalar loads, since each tap is anywhere. The next scale's
+// coordinates are loaded before this scale's channels; the outputs are
+// stored evict-first. At most 64 registers, no spills.
+//
+// The grid takes N B <= 65535, H <= 65535 WARP_ROWS and H W < 2^31 (the
+// one-dimensional grid before it took any shape); a larger call returns
+// cudaErrorInvalidValue, so the wrapper raises.
+//
+// Variants measured on the card (scripts/ab_kernels.py, the b12 and b4
+// calls; PERF.md section 6): 2 or 4 adjacent columns a thread with 8- or
+// 16-byte accesses (which need an even W and aligned pointers, so a
+// second, scalar path for the rest) were no faster than 2 columns 32
+// apart, and 4 adjacent columns need 105 registers (or spill at 64);
+// 4 columns 32 apart lose the backward; 1 column a thread loses both;
+// 16 rows match 8 where the taps lie near the output and win by up to
+// 10% where they scatter; the prefetch gains 2-5%.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
+constexpr int WARP_ROWS = 16;  // rows of a block's tile, one warp each
+constexpr int WARP_COLS = 2;   // columns a thread, 32 apart
+// at least 1024 resident threads an SM: at most 64 registers a thread
+constexpr int WARP_MIN_BLOCKS = 1024 / (32 * WARP_ROWS);
+
 struct Taps {
-  long long i00, i01, i10, i11;  // offsets into one (H, W) source plane
+  int i00, i01, i10, i11;  // offsets into one (H, W) source plane
   float wx, wy;
 };
 
@@ -50,94 +81,177 @@ __device__ __forceinline__ Taps taps(float ix, float iy, int H, int W) {
   const int x1 = min(x0 + 1, W - 1);
   const int y1 = min(y0 + 1, H - 1);
   Taps t;
-  t.i00 = (long long)y0 * W + x0;
-  t.i01 = (long long)y0 * W + x1;
-  t.i10 = (long long)y1 * W + x0;
-  t.i11 = (long long)y1 * W + x1;
+  t.i00 = y0 * W + x0;
+  t.i01 = y0 * W + x1;
+  t.i10 = y1 * W + x0;
+  t.i11 = y1 * W + x1;
   t.wx = ix - x0f;
   t.wy = iy - y0f;
   return t;
 }
 
-// One thread per (n, k, b, h, w) output pixel: C channels each.
-__global__ void warp_fwd_kernel(const float* __restrict__ ix,
-                                const float* __restrict__ iy,
-                                const float* __restrict__ src,
-                                float* __restrict__ out, int K, int B, int C,
-                                int H, int W, long long total) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const long long HW = (long long)H * W;
-  const long long pix = i % HW;
-  const long long nkb = i / HW;  // (n * K + k) * B + b
-  const long long b = nkb % B;
-  const long long n = nkb / ((long long)K * B);
-  const Taps t = taps(__ldg(ix + i), __ldg(iy + i), H, W);
-  const float* s = src + (n * B + b) * C * HW;
-  float* o = out + nkb * C * HW + pix;
-  for (int c = 0; c < C; ++c, s += HW, o += HW) {
-    const float v00 = __ldg(s + t.i00), v01 = __ldg(s + t.i01);
-    const float v10 = __ldg(s + t.i10), v11 = __ldg(s + t.i11);
-    *o = v00 * (1.f - t.wx) * (1.f - t.wy) + v01 * t.wx * (1.f - t.wy) +
-         v10 * (1.f - t.wx) * t.wy + v11 * t.wx * t.wy;
+// A thread's place: (n, b) from blockIdx.z = n B + b (n < N, the 2 or 3
+// source frames, so a few subtractions stand in for the division), its
+// first column's offset in the (H, W) plane, and the columns left in its
+// row from there (column j of the thread is inside iff 32 j < room).
+struct Place {
+  int n, b, pix, room;
+  bool inside;
+};
+
+__device__ __forceinline__ Place place(int B, int H, int W) {
+  Place p;
+  const int h = blockIdx.y * WARP_ROWS + threadIdx.y;
+  const int w = blockIdx.x * 32 * WARP_COLS + threadIdx.x;
+  p.inside = h < H && w < W;
+  p.room = W - w;
+  p.pix = h * W + w;
+  p.b = blockIdx.z;
+  p.n = 0;
+  while (p.b >= B) {
+    p.b -= B;
+    ++p.n;
+  }
+  return p;
+}
+
+// The thread's WARP_COLS floats of a plane read once (coordinates,
+// cotangent), evict-first, so that they do not push the source taps out of
+// L1. A column outside the row reads the first column's value instead (a
+// selected address, not a predicated load: 10% faster in the backward), so
+// its taps stay in the plane; it is not stored.
+__device__ __forceinline__ void load_once(const float* q, const Place& p,
+                                          float (&v)[WARP_COLS]) {
+#pragma unroll
+  for (int j = 0; j < WARP_COLS; ++j)
+    v[j] = __ldcs(q + (32 * j < p.room ? 32 * j : 0));
+}
+
+// The thread's WARP_COLS outputs of a plane, written once, evict-first.
+__device__ __forceinline__ void store_once(float* q, const Place& p,
+                                           const float (&v)[WARP_COLS]) {
+#pragma unroll
+  for (int j = 0; j < WARP_COLS; ++j)
+    if (32 * j < p.room) __stcs(q + 32 * j, v[j]);
+}
+
+__global__ void __launch_bounds__(32 * WARP_ROWS, WARP_MIN_BLOCKS)
+    warp_fwd_kernel(const float* __restrict__ ix, const float* __restrict__ iy,
+                    const float* __restrict__ src, float* __restrict__ out,
+                    int K, int B, int C, int H, int W) {
+  const Place p = place(B, H, W);
+  if (!p.inside) return;
+  const size_t HW = (size_t)H * W;
+  const float* s = src + (size_t)blockIdx.z * C * HW;  // plane (n, b, 0)
+  size_t nkb = (size_t)p.n * K * B + p.b;              // (n, k, b) at k = 0
+  float x[WARP_COLS], y[WARP_COLS];
+  load_once(ix + nkb * HW + p.pix, p, x);
+  load_once(iy + nkb * HW + p.pix, p, y);
+  for (int k = 0; k < K; ++k, nkb += B) {
+    Taps t[WARP_COLS];
+#pragma unroll
+    for (int j = 0; j < WARP_COLS; ++j) t[j] = taps(x[j], y[j], H, W);
+    if (k + 1 < K) {
+      load_once(ix + (nkb + B) * HW + p.pix, p, x);
+      load_once(iy + (nkb + B) * HW + p.pix, p, y);
+    }
+    float* o = out + nkb * C * HW + p.pix;
+    const float* sc = s;
+    for (int c = 0; c < C; ++c, sc += HW, o += HW) {
+      float r[WARP_COLS];
+#pragma unroll
+      for (int j = 0; j < WARP_COLS; ++j) {
+        const float v00 = __ldg(sc + t[j].i00), v01 = __ldg(sc + t[j].i01);
+        const float v10 = __ldg(sc + t[j].i10), v11 = __ldg(sc + t[j].i11);
+        const float wx = t[j].wx, wy = t[j].wy;
+        r[j] = v00 * (1.f - wx) * (1.f - wy) + v01 * wx * (1.f - wy) +
+               v10 * (1.f - wx) * wy + v11 * wx * wy;
+      }
+      store_once(o, p, r);
+    }
   }
 }
 
-__global__ void warp_bwd_kernel(const float* __restrict__ ix,
-                                const float* __restrict__ iy,
-                                const float* __restrict__ src,
-                                const float* __restrict__ g,
-                                float* __restrict__ gix,
-                                float* __restrict__ giy, int K, int B, int C,
-                                int H, int W, long long total) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const long long HW = (long long)H * W;
-  const long long pix = i % HW;
-  const long long nkb = i / HW;
-  const long long b = nkb % B;
-  const long long n = nkb / ((long long)K * B);
-  const Taps t = taps(__ldg(ix + i), __ldg(iy + i), H, W);
-  const float* s = src + (n * B + b) * C * HW;
-  const float* gp = g + nkb * C * HW + pix;
-  float ax = 0.f, ay = 0.f;
-  for (int c = 0; c < C; ++c, s += HW, gp += HW) {
-    const float v00 = __ldg(s + t.i00), v01 = __ldg(s + t.i01);
-    const float v10 = __ldg(s + t.i10), v11 = __ldg(s + t.i11);
-    const float gc = __ldg(gp);
-    ax += gc * ((v01 - v00) * (1.f - t.wy) + (v11 - v10) * t.wy);
-    ay += gc * ((v10 - v00) * (1.f - t.wx) + (v11 - v01) * t.wx);
+__global__ void __launch_bounds__(32 * WARP_ROWS, WARP_MIN_BLOCKS)
+    warp_bwd_kernel(const float* __restrict__ ix, const float* __restrict__ iy,
+                    const float* __restrict__ src, const float* __restrict__ g,
+                    float* __restrict__ gix, float* __restrict__ giy, int K,
+                    int B, int C, int H, int W) {
+  const Place p = place(B, H, W);
+  if (!p.inside) return;
+  const size_t HW = (size_t)H * W;
+  const float* s = src + (size_t)blockIdx.z * C * HW;
+  size_t nkb = (size_t)p.n * K * B + p.b;
+  float x[WARP_COLS], y[WARP_COLS];
+  load_once(ix + nkb * HW + p.pix, p, x);
+  load_once(iy + nkb * HW + p.pix, p, y);
+  for (int k = 0; k < K; ++k, nkb += B) {
+    Taps t[WARP_COLS];
+#pragma unroll
+    for (int j = 0; j < WARP_COLS; ++j) t[j] = taps(x[j], y[j], H, W);
+    if (k + 1 < K) {
+      load_once(ix + (nkb + B) * HW + p.pix, p, x);
+      load_once(iy + (nkb + B) * HW + p.pix, p, y);
+    }
+    const float* gp = g + nkb * C * HW + p.pix;
+    const float* sc = s;
+    float ax[WARP_COLS], ay[WARP_COLS];
+#pragma unroll
+    for (int j = 0; j < WARP_COLS; ++j) ax[j] = ay[j] = 0.f;
+    for (int c = 0; c < C; ++c, sc += HW, gp += HW) {
+      float gc[WARP_COLS];
+      load_once(gp, p, gc);
+#pragma unroll
+      for (int j = 0; j < WARP_COLS; ++j) {
+        const float v00 = __ldg(sc + t[j].i00), v01 = __ldg(sc + t[j].i01);
+        const float v10 = __ldg(sc + t[j].i10), v11 = __ldg(sc + t[j].i11);
+        const float wx = t[j].wx, wy = t[j].wy;
+        ax[j] += gc[j] * ((v01 - v00) * (1.f - wy) + (v11 - v10) * wy);
+        ay[j] += gc[j] * ((v10 - v00) * (1.f - wx) + (v11 - v01) * wx);
+      }
+    }
+    store_once(gix + nkb * HW + p.pix, p, ax);
+    store_once(giy + nkb * HW + p.pix, p, ay);
   }
-  gix[i] = ax;
-  giy[i] = ay;
 }
 
-constexpr int THREADS = 256;
+// The grid of a launch, or false where it does not fit: N B blocks in z,
+// H / WARP_ROWS in y (each at most 65535), and 32-bit offsets in a plane.
+bool grid_of(int N, int B, int H, int W, dim3* grid) {
+  const long long rows = (H + WARP_ROWS - 1) / WARP_ROWS;
+  if ((long long)N * B > 65535 || rows > 65535 ||
+      (long long)H * W >= (1LL << 31))
+    return false;
+  *grid = dim3((W + 32 * WARP_COLS - 1) / (32 * WARP_COLS), (unsigned)rows,
+               N * B);
+  return true;
+}
 
 }  // namespace
 
 // ix, iy (N, K, B, H, W); src (N, B, C, H, W); out (N, K, B, C, H, W).
-// Launches on `stream`, which belongs to the current device. Returns
-// cudaGetLastError().
+// Any alignment. Launches on `stream`, which belongs to the current
+// device. Returns cudaGetLastError(), or cudaErrorInvalidValue for a grid
+// that does not fit (N B > 65535, H > 65535 WARP_ROWS, H W >= 2^31).
 extern "C" int fd_warp_fwd(const void* ix, const void* iy, const void* src,
                            void* out, int N, int K, int B, int C, int H,
                            int W, void* stream) {
-  const long long total = (long long)N * K * B * H * W;
-  const long long blocks = (total + THREADS - 1) / THREADS;
-  warp_fwd_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+  dim3 grid;
+  if (!grid_of(N, B, H, W, &grid)) return (int)cudaErrorInvalidValue;
+  warp_fwd_kernel<<<grid, dim3(32, WARP_ROWS), 0, (cudaStream_t)stream>>>(
       (const float*)ix, (const float*)iy, (const float*)src, (float*)out, K,
-      B, C, H, W, total);
+      B, C, H, W);
   return (int)cudaGetLastError();
 }
 
-// g (N, K, B, C, H, W) -> gix, giy (N, K, B, H, W).
+// g (N, K, B, C, H, W) -> gix, giy (N, K, B, H, W). As fd_warp_fwd.
 extern "C" int fd_warp_bwd(const void* ix, const void* iy, const void* src,
                            const void* g, void* gix, void* giy, int N, int K,
                            int B, int C, int H, int W, void* stream) {
-  const long long total = (long long)N * K * B * H * W;
-  const long long blocks = (total + THREADS - 1) / THREADS;
-  warp_bwd_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+  dim3 grid;
+  if (!grid_of(N, B, H, W, &grid)) return (int)cudaErrorInvalidValue;
+  warp_bwd_kernel<<<grid, dim3(32, WARP_ROWS), 0, (cudaStream_t)stream>>>(
       (const float*)ix, (const float*)iy, (const float*)src, (const float*)g,
-      (float*)gix, (float*)giy, K, B, C, H, W, total);
+      (float*)gix, (float*)giy, K, B, C, H, W);
   return (int)cudaGetLastError();
 }

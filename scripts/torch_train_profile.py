@@ -18,6 +18,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -31,13 +32,27 @@ import torch  # noqa: E402
 from fusiondepth_torch.config import Config  # noqa: E402
 from fusiondepth_torch.data.loader import collate  # noqa: E402
 from fusiondepth_torch.data.synthetic import SyntheticDataset  # noqa: E402
+from fusiondepth_torch.kernels import build  # noqa: E402
 from fusiondepth_torch.training.trainer import Trainer  # noqa: E402
 
-PORT_KERNELS = ("conv3x3_kernel", "conv3x3_wgrad_kernel", "sum_splits",
-                "reflect_fold", "maxpool3x3s2", "warp_fwd", "warp_bwd")
+
+def port_kernel_names() -> set:
+    """The names of the `__global__` kernels of the port's CUDA sources
+    (`__launch_bounds__(...)` between `void` and the name skipped)."""
+    found = set()
+    for src in build.CSRC.glob("*.cu"):
+        found.update(re.findall(
+            r"__global__\s+void\s+(?:__launch_bounds__\(.*?\)\s*)?"
+            r"(\w+)\s*\(", src.read_text()))
+    return found
+
+
+PORT_KERNELS = tuple(sorted(port_kernel_names()))
 
 
 def group(name: str) -> str:
+    """The group of a profiled kernel by its name: the port's own kernels
+    first, since "conv" would file the hand convs under cuDNN."""
     if any(k in name for k in PORT_KERNELS):
         return "port kernels"
     low = name.lower()

@@ -16,7 +16,9 @@ in float32 (the bounds of tests/test_pallas_reproj.py): 5e-6 on the map,
 5e-5 on the warped cotangent.
 """
 
+import importlib.util
 import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -950,3 +952,142 @@ def test_reproj_forward_refuses_more_channels_than_it_keeps():
     t = torch.zeros(1, C, 4, 8, device="meta")
     with pytest.raises(ValueError, match="at most"):
         reproj._check("reproj", w, t, reproj.MAX_FWD_CHANNELS)
+
+
+# ---- the warp kernels' schedule, modelled (csrc/warp.cu) ----
+
+def _odd_view(t):
+    """t as a contiguous view one float past an aligned start."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype)
+    buf[1:] = t.flatten()
+    return buf[1:].view(t.shape)
+
+
+def _warp_schedule(ix, iy, sources, g=None):
+    """warp_fwd_kernel's schedule (warp_bwd_kernel's with g) in float64 on
+    float32 inputs: a block per (tile of WARP_ROWS rows x 32 WARP_COLS
+    columns, n B + b), n and b taken apart by subtraction as the kernel
+    does, WARP_COLS columns 32 apart a thread, each inside iff 32 j < W - w
+    (a column outside reads the thread's first column, whose taps must
+    stay in the plane, and is not written), the K scales in a loop inside
+    the block, the taps as flat offsets y W + x into the (n, b) plane, the
+    backward summed over c in order. Each output is checked to be written
+    exactly once."""
+    ROWS, COLS = _cu_constants("warp.cu", "WARP_ROWS", "WARP_COLS")
+    N, K, B, H, W = ix.shape
+    C = sources.shape[2]
+    by, ty, bx, tx, j = torch.meshgrid(
+        torch.arange(-(-H // ROWS)), torch.arange(ROWS),
+        torch.arange(-(-W // (32 * COLS))), torch.arange(32),
+        torch.arange(COLS), indexing="ij")
+    h, w = by * ROWS + ty, bx * 32 * COLS + tx  # the thread's first column
+    thread = (h < H) & (w < W)
+    col = (32 * j < W - w)[thread]
+    pix = torch.where(col, (h * W + w + 32 * j)[thread], (h * W + w)[thread])
+    assert pix[col].unique().numel() == int(col.sum()) == H * W
+    HW = H * W
+    cx, cy = ix.double().reshape(-1, HW), iy.double().reshape(-1, HW)
+    planes = sources.double().reshape(N * B, C, HW)
+    if g is None:
+        out = torch.full((N * K * B, C, HW), float("nan"), dtype=torch.float64)
+    else:
+        gc = g.double().reshape(N * K * B, C, HW)
+        out = torch.full((2, N * K * B, HW), float("nan"), dtype=torch.float64)
+    for z in range(N * B):
+        n, b = 0, z
+        while b >= B:
+            b, n = b - B, n + 1
+        s = planes[z]
+        for k in range(K):
+            nkb = (n * K + k) * B + b
+            x, y = cx[nkb, pix], cy[nkb, pix]
+            x0f, y0f = torch.floor(x), torch.floor(y)
+            x0, y0 = x0f.long(), y0f.long()
+            x1, y1 = (x0 + 1).clamp(max=W - 1), (y0 + 1).clamp(max=H - 1)
+            wx, wy = x - x0f, y - y0f
+            taps = [yi * W + xi for yi, xi in
+                    ((y0, x0), (y0, x1), (y1, x0), (y1, x1))]
+            assert all(((t >= 0) & (t < HW)).all() for t in taps)
+            v00, v01, v10, v11 = (s[:, t] for t in taps)
+            at = pix[col]
+            if g is None:
+                assert out[nkb][:, at].isnan().all()
+                r = (v00 * (1 - wx) * (1 - wy) + v01 * wx * (1 - wy)
+                     + v10 * (1 - wx) * wy + v11 * wx * wy)
+                out[nkb][:, at] = r[:, col]
+                continue
+            ax = torch.zeros_like(x)
+            ay = torch.zeros_like(x)
+            for c in range(C):
+                ax = ax + gc[nkb, c, pix] * ((v01[c] - v00[c]) * (1 - wy)
+                                             + (v11[c] - v10[c]) * wy)
+                ay = ay + gc[nkb, c, pix] * ((v10[c] - v00[c]) * (1 - wx)
+                                             + (v11[c] - v01[c]) * wx)
+            assert out[:, nkb, at].isnan().all()
+            out[0, nkb, at], out[1, nkb, at] = ax[col], ay[col]
+    if g is None:
+        return out.reshape(N, K, B, C, H, W)
+    return out[0].reshape(ix.shape), out[1].reshape(ix.shape)
+
+
+def _warp_edge_case(H, W, odd, seed=11):
+    """float32 coordinates for 3 sources, 4 scales, batch 2, 3 channels:
+    near the identity, far displacements (300 and 100 px) on one scale,
+    every coordinate of one (n, k, b) on the last column and row, and the
+    first columns and rows at 0; with `odd`, every input a view one float
+    past an aligned start."""
+    r = np.random.RandomState(seed)
+    n, k, B, C = 3, 4, 2, 3
+    jj, ii = np.arange(W)[None], np.arange(H)[:, None]
+    ix = jj + r.standard_normal((n, k, B, H, W)) * 3
+    iy = ii + r.standard_normal((n, k, B, H, W)) * 3
+    ix[:, 1] = jj + 300 * r.standard_normal((n, B, H, W))
+    iy[:, 1] = ii + 100 * r.standard_normal((n, B, H, W))
+    ix[2, 3, 1], iy[2, 3, 1] = W - 1, H - 1
+    ix[0, 0, 0, :, :2], iy[0, 0, 0, :2] = 0, 0
+    t = [torch.from_numpy(a.astype(np.float32)) for a in (
+        np.clip(ix, 0, W - 1), np.clip(iy, 0, H - 1),
+        r.rand(n, B, C, H, W), r.standard_normal((n, k, B, C, H, W)))]
+    return [_odd_view(a) for a in t] if odd else t
+
+
+@pytest.mark.parametrize("H, W, odd", [
+    (H, W, False) for W in (1, 3, 5, 32, 33, 53, 64, 65, 130)
+    for H in (1, 37)] + [(37, 130, True)])
+def test_warp_schedule_matches_plain_f64(H, W, odd):
+    """The kernels' schedule on rows shorter than a warp (W < 32), a second
+    column partly (33, 53) or wholly (W <= 32) outside the row, whole and
+    ragged column tiles (64, 65, 130) and row tiles (H = 37), and on views
+    one float past an aligned start: forward and backward within 1e-12 of
+    the plain versions in float64, every output written once."""
+    ix, iy, src, g = _warp_edge_case(H, W, odd)
+    d = [t.double() for t in (ix, iy, src, g)]
+    torch.testing.assert_close(_warp_schedule(ix, iy, src),
+                               warp.warp_plain(*d[:3]), atol=1e-12, rtol=0)
+    gix, giy = _warp_schedule(ix, iy, src, g)
+    want = warp.warp_bwd_plain(*d)
+    torch.testing.assert_close(gix, want[0], atol=1e-12, rtol=0)
+    torch.testing.assert_close(giy, want[1], atol=1e-12, rtol=0)
+
+
+def test_profile_files_every_port_kernel_under_port_kernels():
+    """scripts/torch_train_profile.py reads the __global__ kernels out of
+    kernels/csrc (those behind __launch_bounds__ too) and files each, named
+    as the profiler names it, under "port kernels" (a hand conv's name
+    holds "conv", which would file it under cuDNN)."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_train_profile",
+        Path(__file__).resolve().parents[1] / "scripts" /
+        "torch_train_profile.py")
+    prof = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(prof)
+    names = prof.port_kernel_names()
+    assert {"conv3x3_fwd_kernel", "conv3x3_wgrad_kernel", "warp_fwd_kernel",
+            "warp_bwd_kernel", "reproj_fwd_kernel", "reproj_bwd_kernel",
+            "knn_partial_kernel", "maxpool3x3s2_bwd_kernel"} <= names
+    for name in sorted(names):
+        for shown in (f"(anonymous namespace)::{name}(float const*, int)",
+                      f"void (anonymous namespace)::{name}<2>(float const*)"):
+            assert prof.group(shown) == "port kernels", shown
+    assert prof.group("sm80_xmma_fprop_implicit_gemm_f32") == \
+        "cuDNN convolutions"
