@@ -26,10 +26,13 @@ order, it:
    16, W = 2, H = 2, warped == target): the pools exactly, the warp at
    atol 1e-5, the convs and dgrad at atol and rtol 1e-4, wgrad to 1e-3 of
    the plain result's largest magnitude, the reprojection loss map at
-   atol 1e-5 and its warped cotangent at atol and rtol 1e-4; checks a
-   whole batch-2 step through the kernels against all-plain with the same
-   weights and noise: the loss within 1e-5, and every gradient leaf
-   against a float64 all-plain step (`hold_step`); then drives
+   atol 1e-5 and its warped cotangent at atol and rtol 1e-4; the backward
+   kernels on the batch-12 step's calls also with unit-scale cotangents
+   (`unit_cotangents`: a step's own are too small for the absolute
+   terms to fail); checks a whole batch-2 step through the kernels
+   against all-plain with the same weights and noise: the loss within
+   1e-5, and every gradient leaf against a float64 all-plain step
+   (`hold_step`); then drives
    Trainer.run_epoch over 36 synthetic frames (3 steps at batch 12) with
    the counts set to 0 before and read after, requires every kernel to
    have run and finite losses, saves a checkpoint and reloads it in Infer;
@@ -45,7 +48,8 @@ order, it:
    about half of its pseudo-LiDAR points), then drives run_inf_gdc over 3
    frames at the default capacities (N = 40960);
 7. the refiner (path B, BASELINE config 4: ResNet-18, 640x192, batch 4):
-   holds the kernels on the calls of a batch-4 refine step, a whole
+   holds the kernels on the calls of a batch-4 refine step (the backward
+   ones also with unit-scale cotangents, as in 5), a whole
    batch-2 refine step through the kernels against all-plain (loss within
    1e-5, each refine2d gradient leaf against a float64 step as in 5),
    drives Refiner.run_epoch over 12 frames carrying inf_gdc (3 steps at
@@ -53,7 +57,20 @@ order, it:
    the batch-4 step (`timing_call` lines), saves and reloads the refine
    checkpoint, and runs evaluate with refine_2d and with refine_2d and
    eval_gdc over the drive's frames;
-8. times each kernel against its plain version (and one PyTorch call that
+8. completion (BASELINE config 5: ResNet-50 depth and beam encoders,
+   ResNet-18 pose encoders, 352 x 1216, batch 4, fp32): holds every
+   stage-1 kernel on the calls of a batch-4 completion step at the
+   tolerances of 5 (the backward ones also with unit-scale cotangents),
+   a whole batch-2 completion step through the kernels against all-plain
+   and float64 as in 5, drives Completor.run_step over 12 synthetic
+   frames (3 steps at batch 4) with the counts set to 0 before and read
+   after (every kernel must have run, the losses be
+   finite; the peak memory is printed), runs Completor.validate on 3
+   frames carrying depth_gt (finite rmse, mae, irmse, imae; the
+   best_completion checkpoint saved, then reloaded into a new Completor
+   that must predict the same depths), and times each kernel's calls of
+   the batch-4 step and the step through the kernels against all-plain;
+9. times each kernel against its plain version (and one PyTorch call that
    computes the same function, where there is one; for the KNN, chunked
    cdist + topk, two calls) over the calls of a batch-12 train step (the
    KNN: one GDC frame; one line per call as well), the steps through the
@@ -61,10 +78,12 @@ order, it:
    after warm-up, each pair in the order plain, kernel, kernel, plain;
    checks that two wgrad launches on a batch-12 layer1 call are
    bit-equal;
-9. prints the card's name and power limit (nvidia-smi), then one JSON
+10. prints the card's name and power limit (nvidia-smi), then one JSON
    line {"kernels": [...]} of the 11 kernels, each with the launches of
    the path that drives it and its bound (the conv rows at the 3xTF32
-   rate, see PEAK_TF32_S, with their achieved TFLOP/s), then, last,
+   rate, see PEAK_TF32_S, with their achieved TFLOP/s), and for the ten
+   of the completion step a "completion" entry with that path's launches,
+   times and bound, then, last,
    {"ok": true, "device": {...}}. After the build it prints what ptxas
    reported for the conv kernels, the pool backward, the warp forward and
    backward, the reprojection-loss forward and backward and
@@ -92,17 +111,17 @@ from fusiondepth_torch.config import Config
 from fusiondepth_torch.data.calibration import Calibration
 from fusiondepth_torch.data.fixtures import DRIVE, build_synthetic_kitti_tree
 from fusiondepth_torch.data.kitti_io import generate_depth_map
-from fusiondepth_torch.data.loader import collate
+from fusiondepth_torch.data.loader import DataLoader, collate
+from fusiondepth_torch.data.prefetch import prefetch_to_device
 from fusiondepth_torch.data.synthetic import SyntheticDataset
-from fusiondepth_torch.kernels import LAUNCHES, build, conv3x3, pool, \
-    reset_launches
+from fusiondepth_torch.kernels import LAUNCHES, all_plain, build, conv3x3, \
+    pool, reset_launches, wrappers
 from fusiondepth_torch.kernels import knn as knn_kernel
-from fusiondepth_torch.kernels import reproj as reproj_kernel
-from fusiondepth_torch.kernels import warp as warp_kernel
 from fusiondepth_torch.models.depth_decoder import ConvBlock
 from fusiondepth_torch.models.fusion import FusionNets
 from fusiondepth_torch.models.norm import BatchNorm
 from fusiondepth_torch.training import checkpoint as ckpt
+from fusiondepth_torch.training.completor import Completor, completion_loss
 from fusiondepth_torch.training.eval_driver import evaluate, \
     predict_disparities
 from fusiondepth_torch.training.gdc_driver import gdc_one_frame, run_inf_gdc
@@ -148,39 +167,25 @@ CONV_KERNELS = ("conv3x3_reflect", "conv3x3_zero_act", "conv3x3_dgrad",
 
 PALLAS = "fusiondepth_tpu/ops/"
 SRC = "fusiondepth_torch/kernels/csrc/"
-# kernel -> (wrapper module, wrapper, plain version, source, TPU kernel)
-KERNELS = {
-    "maxpool3x3s2": (pool, "maxpool3x3s2_fwd", pool.maxpool3x3s2_plain,
-                     SRC + "maxpool3x3s2.cu", PALLAS + "pallas_pool.py:186"),
-    "maxpool3x3s2_bwd": (pool, "maxpool3x3s2_bwd",
-                         pool.maxpool3x3s2_bwd_plain,
-                         SRC + "maxpool3x3s2.cu",
-                         PALLAS + "pallas_pool.py:208"),
-    "conv3x3_reflect": (conv3x3, "conv3x3_reflect_fwd",
-                        conv3x3.conv3x3_reflect_plain, SRC + "conv3x3.cu",
-                        PALLAS + "pallas_fold_conv.py:370"),
-    "conv3x3_zero_act": (conv3x3, "conv3x3_zero_act_fwd",
-                         conv3x3.conv3x3_zero_act_plain, SRC + "conv3x3.cu",
-                         PALLAS + "pallas_fold_conv.py:370"),
-    "conv3x3_dgrad": (conv3x3, "conv3x3_dgrad", conv3x3.conv3x3_dgrad_plain,
-                      SRC + "conv3x3.cu",
-                      PALLAS + "pallas_fold_conv.py:370 (_bwd :511, "
-                      "_zbwd :615)"),
-    "conv3x3_wgrad": (conv3x3, "conv3x3_wgrad", conv3x3.conv3x3_wgrad_plain,
-                      SRC + "conv3x3.cu",
-                      PALLAS + "pallas_fold_conv.py:466"),
-    "warp": (warp_kernel, "warp_fwd", warp_kernel.warp_plain,
-             SRC + "warp.cu", PALLAS + "pallas_warp.py:421"),
-    "warp_bwd": (warp_kernel, "warp_bwd", warp_kernel.warp_bwd_plain,
-                 SRC + "warp.cu", PALLAS + "pallas_warp.py:443"),
-    "reproj": (reproj_kernel, "reproj_fwd", reproj_kernel.reproj_plain,
-               SRC + "reproj.cu", PALLAS + "pallas_reproj.py:219"),
-    "reproj_bwd": (reproj_kernel, "reproj_bwd",
-                   reproj_kernel.reproj_bwd_plain, SRC + "reproj.cu",
-                   PALLAS + "pallas_reproj.py:240"),
-    "knn": (knn_kernel, "knn", knn_kernel.knn_plain, SRC + "knn.cu",
-            "fusiondepth_tpu/gdc/pallas_knn.py:106"),
+# kernel -> (wrapper module, wrapper, plain version, source, TPU kernel):
+# `fusiondepth_torch.kernels.wrappers` with each kernel's source and the
+# TPU kernel it replaces
+SOURCES = {
+    "maxpool3x3s2": ("maxpool3x3s2.cu", PALLAS + "pallas_pool.py:186"),
+    "maxpool3x3s2_bwd": ("maxpool3x3s2.cu", PALLAS + "pallas_pool.py:208"),
+    "conv3x3_reflect": ("conv3x3.cu", PALLAS + "pallas_fold_conv.py:370"),
+    "conv3x3_zero_act": ("conv3x3.cu", PALLAS + "pallas_fold_conv.py:370"),
+    "conv3x3_dgrad": ("conv3x3.cu", PALLAS + "pallas_fold_conv.py:370 "
+                      "(_bwd :511, _zbwd :615)"),
+    "conv3x3_wgrad": ("conv3x3.cu", PALLAS + "pallas_fold_conv.py:466"),
+    "warp": ("warp.cu", PALLAS + "pallas_warp.py:421"),
+    "warp_bwd": ("warp.cu", PALLAS + "pallas_warp.py:443"),
+    "reproj": ("reproj.cu", PALLAS + "pallas_reproj.py:219"),
+    "reproj_bwd": ("reproj.cu", PALLAS + "pallas_reproj.py:240"),
+    "knn": ("knn.cu", "fusiondepth_tpu/gdc/pallas_knn.py:106"),
 }
+KERNELS = {name: (*wrappers()[name], SRC + src, tpu)
+           for name, (src, tpu) in SOURCES.items()}
 # source -> the kernels whose registers and spills the ptxas line gives
 # (mangled-name fragments: the KNN at k = 10 and the reprojection forward at
 # C = 3, as GDC and the train step launch them)
@@ -216,6 +221,12 @@ NATIVE = (375, 1242)
 # pseudo-LiDAR points), and capacities that hold a whole frame, with which
 # the KNN is also held and timed (N = 77824)
 GDC_CAPS, WHOLE_FRAME_CAPS = (32768, 8192), (69632, 8192)
+# completion (BASELINE config 5): R50 depth and beam encoders, R18 pose
+# encoders, 352 x 1216; steps at batch 4, validation frames with depth_gt
+COMPLETION_HW = (352, 1216)
+COMPLETION_BATCH, COMPLETION_FRAMES, COMPLETION_VAL = 4, 12, 3
+# the completion step's kernels: every stage-1 kernel (the KNN is GDC's)
+COMPLETION_KERNELS = TRAIN_KERNELS
 
 
 def emit(**kw):
@@ -225,29 +236,6 @@ def emit(**kw):
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
-
-
-@contextlib.contextmanager
-def plain_kernels(record=None):
-    """Route every kernel wrapper to its plain version for the duration;
-    with `record`, also append (kernel, args, kwargs) of each call, inputs
-    cloned. Launches nothing."""
-    saved = {}
-    for name, (mod, attr, plain, _, _) in KERNELS.items():
-        saved[name] = getattr(mod, attr)
-
-        def stand_in(*args, _name=name, _plain=plain, **kwargs):
-            if record is not None:
-                record.append((_name, [a.clone() if torch.is_tensor(a)
-                                       else a for a in args], dict(kwargs)))
-            return _plain(*args, **kwargs)
-
-        setattr(mod, attr, stand_in)
-    try:
-        yield
-    finally:
-        for name, (mod, attr, _, _, _) in KERNELS.items():
-            setattr(mod, attr, saved[name])
 
 
 class SmokeFrames:
@@ -266,13 +254,15 @@ class SmokeFrames:
         return "2011_09_26/2011_09_26_drive_0001_sync", i, "l"
 
 
-def seeded_weights(cfg: Config, seed: int = 0) -> FusionNets:
+def seeded_weights(cfg: Config, seed: int = 0,
+                   pose_depth: int = None) -> FusionNets:
     """The model's own seeded init, with every BatchNorm's scale, shift and
     running statistics and every conv bias drawn from the seed as well, so
     that no affine is the identity (the fused encoder conv's border
     handling is only visible with a non-zero shift)."""
     nets = FusionNets(cfg, device="cpu",
-                      generator=torch.Generator().manual_seed(seed))
+                      generator=torch.Generator().manual_seed(seed),
+                      pose_depth=pose_depth)
     g = torch.Generator().manual_seed(seed + 1)
     with torch.no_grad():
         for m in nets.modules():
@@ -670,10 +660,11 @@ def step_noise(cfg: Config, batch: int, dev):
         device=dev) for _ in cfg.scales]
 
 
-def step_grads(cfg, nets, batch, noise):
-    """(loss, {param: grad}) of one training-mode step, no update."""
+def step_grads(cfg, nets, batch, noise, loss_of=loss_fn):
+    """(loss, {param: grad}) of one training-mode step of the loss
+    `loss_of` (the stage-1 loss, or `completion_loss`), no update."""
     nets.zero_grad(set_to_none=True)
-    loss, _ = loss_fn(cfg, nets, batch, noise=noise)
+    loss, _ = loss_of(cfg, nets, batch, noise=noise)
     loss.backward()
     return loss.item(), {n: p.grad.detach().clone()
                          for n, p in nets.named_parameters()}
@@ -751,7 +742,7 @@ def hold_step(check, grads, batch, noise, grads64, kernels):
     loss_k, grads_k = grads(batch, noise)
     require(all(LAUNCHES[k] for k in kernels),
             f"{check}: the kernel step launched {LAUNCHES}")
-    with plain_kernels():
+    with all_plain():
         loss_p, grads_p = grads(batch, noise)
         noisy = [grads_p] + [grads(nudged(batch, s), noise)[1]
                              for s in range(NOISE_STEPS)]
@@ -814,7 +805,7 @@ def infer_phase(dev, tmp):
 
     calls = []
     with torch.no_grad():
-        with plain_kernels(record=calls):
+        with all_plain(record=calls):
             nets.forward_depth(one)
     edges = [c for c in edge_calls(dev) if c[0] in FORWARD_KERNELS]
     err = check_kernels(calls + edges)
@@ -868,7 +859,7 @@ def infer_phase(dev, tmp):
         require(all(LAUNCHES[k] for k in FORWARD_KERNELS),
                 f"kernel forward launched {LAUNCHES}")
         reset_launches()
-        with plain_kernels():
+        with all_plain():
             want = nets.forward_depth(four)[0]
         require(not any(LAUNCHES.values()),
                 f"plain forward launched {LAUNCHES}")
@@ -881,7 +872,7 @@ def infer_phase(dev, tmp):
         card = card_line()
         for label, b in (("batch1", one), ("batch4", four)):
             def run_plain():
-                with plain_kernels():
+                with all_plain():
                     nets.forward_depth(b)
             k, p = paired_ms(lambda: nets.forward_depth(b), run_plain,
                              iters=10)
@@ -904,7 +895,7 @@ def train_phase(dev, tmp):
 
     # every kernel on the inputs a batch-2 train step gives it
     calls = []
-    with plain_kernels(record=calls):
+    with all_plain(record=calls):
         loss_fn(cfg, nets, small, noise=noise)[0].backward()
     nets.zero_grad(set_to_none=True)
     edges = edge_calls(dev)
@@ -961,16 +952,16 @@ def train_phase(dev, tmp):
     emit(check="checkpoint_reload_in_infer", max_abs_err=reload_err)
     require(reload_err <= 1e-6, f"reloaded bundle differs by {reload_err}")
 
-    # every kernel on the inputs of a batch-12 step, the main path's;
+    # every kernel on the inputs of a batch-12 step, the main path's (the
+    # backward ones also with unit-scale cotangents);
     # timings: each kernel over the calls of that step, and the step itself
     # through the kernels against all-plain
     big = trainer.put_batch(collate([data[i] for i in range(TRAIN_BATCH)]))
     calls = []
-    with plain_kernels(record=calls):
+    with all_plain(record=calls):
         loss_fn(cfg, trainer.nets, big)[0].backward()
     trainer.nets.zero_grad(set_to_none=True)
-    err_big = check_kernels(calls)
-    emit_checks(err_big, calls, [], "train_batch12")
+    err_big = check_step_calls(calls, dev, "train_batch12")
     wgrad_repeats(calls)
     err = {k: max(e, err_big.get(k, 0.0)) for k, e in err.items()}
     ktimes = time_kernels(calls, "train_batch12")
@@ -980,7 +971,7 @@ def train_phase(dev, tmp):
         trainer.run_step(big, on_device=True)
 
     def plain_step():
-        with plain_kernels():
+        with all_plain():
             trainer.run_step(big, on_device=True)
 
     step_ms, plain_step_ms = paired_ms(kernel_step, plain_step, iters=3,
@@ -1096,7 +1087,7 @@ def gdc_phase(dev, tmp, weights):
 
     # the kernel on the cloud of a frame, and GDC through plain KNN
     calls = []
-    with plain_kernels(record=calls):
+    with all_plain(record=calls):
         plain0 = gdc_one_frame(cfg, root, DRIVE, 0, "l", calib, device=dev)
     require([c[0] for c in calls] == ["knn"], f"GDC made {calls}")
     edges = knn_edge_calls(dev)
@@ -1156,7 +1147,7 @@ def whole_frame_knn(cfg, root, calib, dev) -> float:
     distances within KNN_DIST_RTOL) and timed. Returns the largest
     distance error."""
     calls = []
-    with plain_kernels(record=calls):
+    with all_plain(record=calls):
         gdc_one_frame(cfg, root, DRIVE, 0, "l", calib,
                       *WHOLE_FRAME_CAPS, device=dev)
     require([c[0] for c in calls] == ["knn"], f"GDC made {calls}")
@@ -1199,7 +1190,8 @@ def refine_grads(cfg, nets, batch, noise):
 
 def refine_phase(dev, tmp, weights, tree_frames):
     """Path B, the refiner (BASELINE config 4: ResNet-18, 640x192,
-    batch 4): the kernels on the calls of a batch-4 refine step, a whole
+    batch 4): the kernels on the calls of a batch-4 refine step (the
+    backward ones also with unit-scale cotangents), a whole
     batch-2 step against all-plain and float64, Refiner.run_epoch, a
     checkpoint round trip, and evaluate with refine_2d and with
     eval_gdc."""
@@ -1218,11 +1210,10 @@ def refine_phase(dev, tmp, weights, tree_frames):
 
     # every kernel on the inputs of a batch-4 step, the main path's
     calls = []
-    with plain_kernels(record=calls):
+    with all_plain(record=calls):
         refine_loss(cfg, nets, big)[0].backward()
     nets.zero_grad(set_to_none=True)
-    err = check_kernels(calls)
-    emit_checks(err, calls, [], "refine")
+    err = check_step_calls(calls, dev, "refine")
     time_kernels([c for c in calls if c[0] in ("warp", "warp_bwd")],
                  "refine_batch4")
     del calls
@@ -1288,7 +1279,7 @@ def refine_phase(dev, tmp, weights, tree_frames):
             "evaluate with eval_gdc ran no KNN kernel")
 
     def plain_step():
-        with plain_kernels():
+        with all_plain():
             refiner.run_step(big, on_device=True)
 
     step_ms, plain_ms = paired_ms(
@@ -1298,6 +1289,175 @@ def refine_phase(dev, tmp, weights, tree_frames):
          plain_ms=plain_ms, samples_per_s=REFINE_BATCH / step_ms * 1e3,
          plain_samples_per_s=REFINE_BATCH / plain_ms * 1e3)
     return err, launches
+
+
+class CompletionFrames(SmokeFrames):
+    """Synthetic completion frames at 352 x 1216, each with a dense
+    ground-truth depth map in metres (for validate)."""
+
+    def __init__(self, cfg: Config, n: int):
+        super().__init__(cfg, n)
+        rng = np.random.default_rng(8)
+        self.gt = rng.uniform(2.0, 60.0, (n, cfg.height, cfg.width)).astype(
+            np.float32)
+
+    def __getitem__(self, i):
+        return {**self.inner[i], "depth_gt": self.gt[i]}
+
+
+# the cotangent argument of each backward kernel's wrapper
+COTANGENT_ARG = {"maxpool3x3s2_bwd": 2, "conv3x3_dgrad": 0,
+                 "conv3x3_wgrad": 0, "warp_bwd": 3, "reproj_bwd": 2}
+
+
+def unit_cotangents(calls, dev):
+    """The backward calls of `calls` with each cotangent replaced by
+    N(0, 1) draws of its shape. A step's own cotangents are of the order
+    of 1 / (pixels x batch), ~1e-9 at 352 x 1216, where the absolute
+    terms of CONV_TOL and REPROJ_BWD_TOL would see no error; at unit
+    scale the same tolerances hold the kernels to fp32 accuracy."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    out = []
+    for name, args, kwargs in calls:
+        if name in COTANGENT_ARG:
+            args = list(args)
+            i = COTANGENT_ARG[name]
+            args[i] = torch.randn(args[i].shape, generator=g, device=dev)
+            out.append((name, args, kwargs))
+    return out
+
+
+def check_step_calls(calls, dev, path):
+    """`check_kernels` on the calls of one main-path step, then on its
+    backward calls again with `unit_cotangents`; returns the larger error
+    of the two per kernel."""
+    err = check_kernels(calls)
+    emit_checks(err, calls, [], path)
+    unit = unit_cotangents(calls, dev)
+    err_unit = check_kernels(unit)
+    emit_checks(err_unit, unit, [], path + "_unit_cotangents")
+    return {k: max(e, err_unit.get(k, 0.0)) for k, e in err.items()}
+
+
+def completion_phase(dev, tmp):
+    """Completion (BASELINE config 5: ResNet-50 depth and beam encoders,
+    ResNet-18 pose encoders, 352 x 1216, fp32, weights from a seed): every
+    kernel on the calls of a batch-4 completion step (the backward ones
+    also with unit-scale cotangents), a whole batch-2 step
+    against all-plain and float64 (`hold_step`), Completor.run_step over 3
+    steps at batch 4 with every kernel launched, validate with the
+    best_completion checkpoint saved and reloaded, and the kernels and the
+    step timed."""
+    H, W = COMPLETION_HW
+    cfg = Config(num_layers=50, completion_num_layers=50,
+                 completion_pose_num_layers=18, height=H, width=W,
+                 batch_size=COMPLETION_BATCH, weights_init="scratch",
+                 log_dir=tmp, num_workers=4, log_frequency=1,
+                 model_name="smoke_completion", eval_batch_size=1)
+    data = SyntheticDataset(cfg, length=COMPLETION_FRAMES, seed=7)
+    val = CompletionFrames(cfg, COMPLETION_VAL)
+    comp = Completor(cfg, train_dataset=data, val_dataset=val, device=dev)
+    cfg = comp.cfg
+    require((cfg.height, cfg.width, cfg.num_layers, comp.nets.pose_depth)
+            == (H, W, 50, 18), f"completion config {cfg.height}x{cfg.width}"
+            f" R{cfg.num_layers}/R{comp.nets.pose_depth}")
+    comp.nets.load_state_dict(seeded_weights(cfg, pose_depth=18).state_dict())
+    nets = comp.nets
+    small = comp.put_batch(collate([data[i] for i in range(CHECK_BATCH)]))
+    big = comp.put_batch(collate([data[i] for i in range(COMPLETION_BATCH)]))
+
+    # every kernel on the inputs of a batch-4 step, the main path's
+    calls = []
+    with all_plain(record=calls):
+        completion_loss(cfg, nets, big,
+                        noise=step_noise(cfg, COMPLETION_BATCH, dev)
+                        )[0].backward()
+    nets.zero_grad(set_to_none=True)
+    err = check_step_calls(calls, dev, "completion_batch4")
+    require(set(err) == set(COMPLETION_KERNELS),
+            f"the completion step called {sorted(err)}")
+    ktimes = time_kernels(calls, "completion_batch4", iters=5)
+    del calls
+
+    # a whole batch-2 step through the kernels against all-plain, both
+    # held against an all-plain float64 step of the same weights
+    noise = step_noise(cfg, CHECK_BATCH, dev)
+
+    def grads64():
+        cfg64 = cfg.replace(compute_dtype="float64")
+        ref = copy.deepcopy(nets).double()
+        ref.cfg = cfg64
+        scales = {}
+        with summand_scales(ref, scales):
+            loss, grads = step_grads(
+                cfg64, ref, {k: v.double() for k, v in small.items()},
+                [n.double() for n in noise], completion_loss)
+        return loss, grads, scales
+
+    hold_step("completion_step_vs_all_plain",
+              lambda b, n: step_grads(cfg, nets, b, n, completion_loss),
+              small, noise, grads64, COMPLETION_KERNELS)
+    nets.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+
+    # the entry point: 3 steps at batch 4 through the kernels
+    loader = DataLoader(data, COMPLETION_BATCH, shuffle=True, drop_last=True,
+                        num_workers=cfg.num_workers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t = time.perf_counter()
+    losses = [float(comp.run_step(db, on_device=True)["loss"])
+              for db in prefetch_to_device(loader, comp.put_batch, size=2)]
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    secs = time.perf_counter() - t
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    emit(phase="completor_run_step", steps=len(losses),
+         batch=COMPLETION_BATCH, seconds=secs, losses=losses,
+         launches=launches, peak_memory_gib=peak_gib)
+    require(len(losses) == COMPLETION_FRAMES // COMPLETION_BATCH,
+            f"{len(losses)} completion steps")
+    require(all(np.isfinite(losses)), f"non-finite losses {losses}")
+    for name in COMPLETION_KERNELS:
+        require(launches[name] > 0, f"completion: kernel {name} was never "
+                "launched")
+
+    # validate: metrics, the best checkpoint, and its reload
+    t = time.perf_counter()
+    metrics = comp.validate()
+    emit(phase="completor_validate", frames=COMPLETION_VAL,
+         seconds=time.perf_counter() - t, metrics=metrics)
+    require(metrics is not None and set(metrics) == {
+        "rmse", "mae", "irmse", "imae"} and all(
+        np.isfinite(v) for v in metrics.values()),
+        f"completion metrics {metrics}")
+    best = os.path.join(tmp, cfg.model_name, "models",
+                        "weights_best_completion")
+    require(os.path.exists(os.path.join(best, ckpt.MODEL_FILE)),
+            f"no best_completion checkpoint at {best}")
+    reloaded = Completor(cfg, device=dev)
+    reloaded.load(best)
+    probe = collate([val[i] for i in range(2)])
+    reload_err = float(np.abs(reloaded.predict_depth(probe)
+                              - comp.predict_depth(probe)).max())
+    emit(check="completion_checkpoint_reload", max_abs_err=reload_err)
+    require(reload_err <= 1e-6, f"reloaded completor differs by "
+            f"{reload_err}")
+    del reloaded
+
+    def plain_step():
+        with all_plain():
+            comp.run_step(big, on_device=True)
+
+    step_ms, plain_ms = paired_ms(lambda: comp.run_step(big, on_device=True),
+                                  plain_step, iters=3, warmup=1)
+    emit(timing="completion_step", batch=COMPLETION_BATCH, ms=step_ms,
+         plain_ms=plain_ms, samples_per_s=COMPLETION_BATCH / step_ms * 1e3,
+         plain_samples_per_s=COMPLETION_BATCH / plain_ms * 1e3,
+         kernels_ms=sum(r["ms"] for r in ktimes.values()),
+         peak_memory_gib=peak_gib, card=card_line())
+    return err, launches, ktimes
 
 
 def main() -> int:
@@ -1312,20 +1472,30 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = build.build()
     build.load()
-    emit(phase="build", seconds=time.perf_counter() - t0, library=lib.name)
+    build_s = time.perf_counter() - t0
+    emit(phase="build", seconds=build_s, library=lib.name)
     # what ptxas reported for the kernels of PTXAS_KERNELS
     emit(phase="ptxas", kernels=[
         dict(source=SRC + src, **r) for src, names in PTXAS_KERNELS.items()
         for r in build.ptxas_report(src)
         if any(n in r["kernel"] for n in names)])
 
-    errs, launches, times = [], {}, {}
+    errs, launches, times, seconds = [], {}, {}, {}
+    clock = [time.perf_counter()]
+
+    def lap(phase):
+        now = time.perf_counter()
+        seconds[phase] = now - clock[0]
+        clock[0] = now
+
     with tempfile.TemporaryDirectory() as tmp:
         err, launches_infer = infer_phase(dev, tmp)
         errs.append(err)
+        lap("infer")
         err, launches["train"], ktimes = train_phase(dev, tmp)
         errs.append(err)
         times.update({k: ktimes[k] for k in TRAIN_KERNELS})
+        lap("train")
         # one stage-1 checkpoint of seeded weights for stage 2
         cfg = Config(num_layers=18, height=HEIGHT, width=WIDTH,
                      weights_init="scratch", log_dir=tmp)
@@ -1334,13 +1504,23 @@ def main() -> int:
                                                              weights)
         errs.append(err)
         times["knn"] = ktimes["knn"]
+        lap("inf_gdc")
         err, launches["refiner"] = refine_phase(dev, tmp, weights, frames)
         errs.append(err)
+        lap("refiner")
+        err, launches["completion"], ctimes = completion_phase(dev, tmp)
+        errs.append(err)
+        lap("completion")
+    emit(phase_seconds=seconds, build_seconds=build_s,
+         total_seconds=time.perf_counter() - t0)
     launches.update(launches_infer)
     card = card_line()
     for name, r in times.items():
         emit(timing=name, per=f"all calls of one {KERNEL_PATH[name]} step "
              "or frame", card=card, **r)
+    for name in COMPLETION_KERNELS:
+        emit(timing=name, per="all calls of one completion step",
+             card=card, **ctimes[name])
 
     print(card)
     kernels = []
@@ -1356,6 +1536,14 @@ def main() -> int:
             "library_of_ms": r["library_of_ms"], "tflops": r["tflops"],
             "calls_per_step": r["calls"], "path": KERNEL_PATH[name],
             "launches_by_path": {p: c[name] for p, c in launches.items()}})
+        if name in COMPLETION_KERNELS:
+            c = ctimes[name]
+            kernels[-1]["completion"] = {
+                "launches": launches["completion"][name],
+                "calls_per_step": c["calls"], "ms": c["ms"],
+                "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+                "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+                "library_of_ms": c["library_of_ms"], "tflops": c["tflops"]}
     kernels[-1]["cdist_topk_ms"] = times["knn"]["cdist_topk_ms"]
     emit(kernels=kernels)
     emit(ok=True, device={"platform": "gpu",

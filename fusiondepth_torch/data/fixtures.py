@@ -3,15 +3,13 @@
 not installed).
 
 Generates a minimal KITTI RAW drive (calib, velodyne bins, K-beam bins,
-2channel caches), standing in for real KITTI data for the offline GDC
-and its evaluation. The scene is a flat ground plane plus a
-fronto-parallel wall so projections, sparsification and GDC all see
-plausible geometry. Unlike the JAX fixture it writes no images (the port's
-callers draw their frames from `data/synthetic.py`), and it writes
-everything with numpy; the calib's native resolution can be given
-(`native`, default (2 * height, 2 * width) as there), so that GDC can run
-at KITTI's native 375 x 1242. For the same seed the LiDAR files are the
-JAX fixture's.
+2channel caches, the camera's jpgs), standing in for real KITTI data for
+the offline GDC, its evaluation and the host-fed bench. The scene is a
+flat ground plane plus a fronto-parallel wall so projections,
+sparsification and GDC all see plausible geometry. The calib's native
+resolution can be given (`native`, default (2 * height, 2 * width) as
+there), so that GDC can run at KITTI's native 375 x 1242. For the same
+seed the calib, jpgs and LiDAR files are the JAX fixture's.
 """
 
 from __future__ import annotations
@@ -20,6 +18,7 @@ import os
 from typing import Optional, Tuple
 
 import numpy as np
+from PIL import Image
 
 from fusiondepth_torch.data.kitti_io import generate_depth_map
 from fusiondepth_torch.data.sparsify import sparsify_beams
@@ -57,9 +56,12 @@ def build_synthetic_kitti_tree(root: str, n_frames: int = 3,
     with open(f"{root}/{date}/calib_velo_to_cam.txt", "w") as f:
         f.write("R: 0 -1 0 0 0 -1 1 0 0\nT: 0 0 0\n")
 
+    os.makedirs(f"{root}/{DRIVE}/image_02/data", exist_ok=True)
     rng = np.random.default_rng(seed)
     for i in range(n_frames):
-        rng.uniform(0, 255, (ih, iw, 3))  # the JAX fixture's image draw
+        img = rng.uniform(0, 255, (ih, iw, 3)).astype(np.uint8)
+        Image.fromarray(img).save(
+            f"{root}/{DRIVE}/image_02/data/{i:010d}.jpg")
         n = 30000
         x = rng.uniform(2, 80, n)
         y = rng.uniform(-30, 30, n)

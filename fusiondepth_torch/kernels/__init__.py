@@ -11,6 +11,10 @@ A kernel that needs a gradient is a `torch.autograd.Function` whose forward
 and backward call such wrappers, so the backward pass launches kernels
 too, each counted under its own name (`maxpool3x3s2_bwd`, `warp_bwd`,
 `conv3x3_dgrad`, `conv3x3_wgrad`, `reproj_bwd`).
+
+`all_plain` routes every wrapper to its plain version for a while (the
+all-plain steps that `chip_smoke.py` and `bench.py` compare and count
+against).
 """
 
 from __future__ import annotations
@@ -55,3 +59,51 @@ def check_cuda_f32(name: str, **tensors) -> None:
         devices.add(t.device)
     if len(devices) > 1:
         raise ValueError(f"{name}: tensors on several devices {devices}")
+
+
+def wrappers():
+    """{kernel: (wrapper module, wrapper name, plain version)} of every
+    kernel in LAUNCHES."""
+    from fusiondepth_torch.kernels import conv3x3, knn, pool, reproj, warp
+
+    return {
+        "maxpool3x3s2": (pool, "maxpool3x3s2_fwd", pool.maxpool3x3s2_plain),
+        "maxpool3x3s2_bwd": (pool, "maxpool3x3s2_bwd",
+                             pool.maxpool3x3s2_bwd_plain),
+        "conv3x3_reflect": (conv3x3, "conv3x3_reflect_fwd",
+                            conv3x3.conv3x3_reflect_plain),
+        "conv3x3_zero_act": (conv3x3, "conv3x3_zero_act_fwd",
+                             conv3x3.conv3x3_zero_act_plain),
+        "conv3x3_dgrad": (conv3x3, "conv3x3_dgrad",
+                          conv3x3.conv3x3_dgrad_plain),
+        "conv3x3_wgrad": (conv3x3, "conv3x3_wgrad",
+                          conv3x3.conv3x3_wgrad_plain),
+        "warp": (warp, "warp_fwd", warp.warp_plain),
+        "warp_bwd": (warp, "warp_bwd", warp.warp_bwd_plain),
+        "reproj": (reproj, "reproj_fwd", reproj.reproj_plain),
+        "reproj_bwd": (reproj, "reproj_bwd", reproj.reproj_bwd_plain),
+        "knn": (knn, "knn", knn.knn_plain),
+    }
+
+
+@contextlib.contextmanager
+def all_plain(record=None):
+    """Route every kernel wrapper to its plain version for the duration;
+    with `record` (a list), also append (kernel, args, kwargs) of each
+    call, tensor inputs cloned. Launches nothing."""
+    table = wrappers()
+    saved = {name: getattr(mod, attr)
+             for name, (mod, attr, _) in table.items()}
+    for name, (mod, attr, plain) in table.items():
+        def stand_in(*args, _name=name, _plain=plain, **kwargs):
+            if record is not None:
+                record.append((_name, [a.clone() if torch.is_tensor(a)
+                                       else a for a in args], dict(kwargs)))
+            return _plain(*args, **kwargs)
+
+        setattr(mod, attr, stand_in)
+    try:
+        yield
+    finally:
+        for name, (mod, attr, _) in table.items():
+            setattr(mod, attr, saved[name])

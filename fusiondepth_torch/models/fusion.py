@@ -62,10 +62,15 @@ class FusionNets(nn.Module):
 
     The pose networks are built for pose_model_type "separate_resnet" (the
     default); the "shared" and "posecnn" pose types are not ported yet, and
-    predict_poses raises for them."""
+    predict_poses raises for them.
+
+    `pose_depth` gives the pose and beam-pose encoders a ResNet depth of
+    their own (default cfg.num_layers): the completor's
+    completion_pose_num_layers split (reference completor.py:58-76)."""
 
     def __init__(self, cfg: Config, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 pose_depth: Optional[int] = None):
         super().__init__()
         if cfg.height < 64 or cfg.width < 64:
             # the stride-32 map must be >= 2x2 for the reflect-pad convs
@@ -74,6 +79,7 @@ class FusionNets(nn.Module):
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.cfg = cfg
+        self.pose_depth = pose_depth or cfg.num_layers
         enc_in = 3
         if cfg.cat_4beam_to_color:
             enc_in = 4
@@ -101,12 +107,13 @@ class FusionNets(nn.Module):
         self.pose_encoder = self.beam_encoder_pose = self.pose = None
         if cfg.use_pose_net and cfg.pose_model_type == "separate_resnet":
             n = cfg.num_pose_frames
-            self.pose_encoder = ResnetEncoder(cfg.num_layers, 3 * n,
+            self.pose_encoder = ResnetEncoder(self.pose_depth, 3 * n,
                                               generator=generator)
             if cfg.beam_encoder:
                 self.beam_encoder_pose = ResnetEncoder(
-                    cfg.num_layers, 2 * n, generator=generator)
-            self.pose = PoseDecoder(ch[-1], num_input_features=1,
+                    self.pose_depth, 2 * n, generator=generator)
+            pose_ch = RESNET_FEATURE_CHANNELS[self.pose_depth][-1]
+            self.pose = PoseDecoder(pose_ch, num_input_features=1,
                                     num_frames_to_predict_for=2,
                                     generator=generator)
         self.to(device=device, dtype=model_dtype(cfg))

@@ -14,7 +14,7 @@ update the BN running statistics twice).
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -74,15 +74,16 @@ def loss_fn(cfg: Config, nets: FusionNets, batch: Dict[str, torch.Tensor],
 def train_step(cfg: Config, nets: FusionNets, opt: torch.optim.Optimizer,
                sched, batch: Dict[str, torch.Tensor],
                generator: Optional[torch.Generator] = None,
-               noise: Optional[Sequence[torch.Tensor]] = None
-               ) -> Dict[str, torch.Tensor]:
-    """One optimization step; returns the losses, detached (reading them
+               noise: Optional[Sequence[torch.Tensor]] = None,
+               loss_of: Callable = loss_fn) -> Dict[str, torch.Tensor]:
+    """One optimization step of `loss_of` (stage 1's `loss_fn` unless
+    given, with its signature); returns the losses, detached (reading them
     is the caller's sync point). `noise` replays the automask noise of a
     single-microbatch step."""
     accum = max(cfg.grad_accum_steps, 1)
     opt.zero_grad(set_to_none=True)
     if accum == 1:
-        loss, losses = loss_fn(cfg, nets, batch, noise, generator)
+        loss, losses = loss_of(cfg, nets, batch, noise, generator)
         loss.backward()
         losses = {k: v.detach() for k, v in losses.items()}
     else:
@@ -96,7 +97,7 @@ def train_step(cfg: Config, nets: FusionNets, opt: torch.optim.Optimizer,
         losses = {}
         for i in range(accum):
             part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-            loss, ls = loss_fn(cfg, nets, part, None, generator)
+            loss, ls = loss_of(cfg, nets, part, None, generator)
             (loss / accum).backward()
             for k, v in ls.items():
                 losses[k] = losses.get(k, 0.0) + v.detach() / accum

@@ -1,10 +1,12 @@
 """Where the time of one port train step goes, on one NVIDIA GPU.
 
-    python3 scripts/torch_train_profile.py [--batch 12] [--steps 3]
-        [--out log/train_profile.json]
+    python3 scripts/torch_train_profile.py [--config 3] [--batch N]
+        [--steps 3] [--out log/train_profile.json]
 
-Builds the port's trainer for BASELINE config 3 (ResNet-18, 640x192, fp32,
-TF32 off, random weights from a seed), runs two warm-up steps, then
+Builds the port's trainer for BASELINE config 3 (ResNet-18, 640x192,
+batch 12) or, with --config 5, its completor (ResNet-50 depth and beam
+encoders, ResNet-18 pose encoders, 1216x352, batch 4), fp32, TF32 off,
+random weights from a seed, runs two warm-up steps, then
 `--steps` steps under torch.profiler, and prints one JSON line: the card,
 the wall ms per step (host clock around a synchronized step, without the
 profiler), the device-busy ms per step (union of kernel intervals), and
@@ -33,6 +35,7 @@ from fusiondepth_torch.config import Config  # noqa: E402
 from fusiondepth_torch.data.loader import collate  # noqa: E402
 from fusiondepth_torch.data.synthetic import SyntheticDataset  # noqa: E402
 from fusiondepth_torch.kernels import build  # noqa: E402
+from fusiondepth_torch.training.completor import Completor  # noqa: E402
 from fusiondepth_torch.training.trainer import Trainer  # noqa: E402
 
 
@@ -85,7 +88,11 @@ def busy_ms(events) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--batch", type=int, default=12)
+    ap.add_argument("--config", type=int, default=3, choices=[3, 5],
+                    help="3: the stage-1 train step; 5: the completion "
+                         "step")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="default 12 (config 3) or 4 (config 5)")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--out", default="log/train_profile.json")
     args = ap.parse_args()
@@ -98,26 +105,36 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
+    if args.batch is None:
+        args.batch = 12 if args.config == 3 else 4
     with tempfile.TemporaryDirectory() as tmp:
-        cfg = Config(num_layers=18, height=192, width=640,
-                     batch_size=args.batch, weights_init="scratch",
-                     log_dir=tmp)
-        data = SyntheticDataset(cfg, length=args.batch, seed=0)
-        trainer = Trainer(cfg, train_dataset=data, device=dev)
-        batch = trainer.put_batch(collate([data[i]
-                                           for i in range(args.batch)]))
+        if args.config == 3:
+            cfg = Config(num_layers=18, height=192, width=640,
+                         batch_size=args.batch, weights_init="scratch",
+                         log_dir=tmp)
+            data = SyntheticDataset(cfg, length=args.batch, seed=0)
+            driver = Trainer(cfg, train_dataset=data, device=dev)
+        else:
+            cfg = Config(num_layers=50, completion_num_layers=50,
+                         completion_pose_num_layers=18, height=352,
+                         width=1216, batch_size=args.batch,
+                         weights_init="scratch", log_dir=tmp)
+            data = SyntheticDataset(cfg, length=args.batch, seed=0)
+            driver = Completor(cfg, train_dataset=data, device=dev)
+        batch = driver.put_batch(collate([data[i]
+                                          for i in range(args.batch)]))
         for _ in range(2):
-            trainer.run_step(batch, on_device=True)
+            driver.run_step(batch, on_device=True)
         torch.cuda.synchronize()
         t = time.perf_counter()
         for _ in range(args.steps):
-            trainer.run_step(batch, on_device=True)
+            driver.run_step(batch, on_device=True)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3 / args.steps
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(args.steps):
-                trainer.run_step(batch, on_device=True)
+                driver.run_step(batch, on_device=True)
             torch.cuda.synchronize()
     dev_events = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -138,7 +155,8 @@ def main() -> int:
                                                for n, v in top}}, f,
                   indent=1)
     print(json.dumps({
-        "card": card, "batch": args.batch, "steps": args.steps,
+        "card": card, "config": args.config, "batch": args.batch,
+        "steps": args.steps,
         "wall_ms_per_step": wall,
         "device_busy_ms_per_step": busy_ms(dev_events) / args.steps,
         "device_launches_per_step": len(dev_events) / args.steps,

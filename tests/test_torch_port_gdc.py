@@ -330,26 +330,26 @@ def test_run_inf_gdc_matches_jax(kitti_tree, monkeypatch):
 
 
 def test_port_fixture_tree_matches_jax_fixture_tree(tmp_path):
-    """The port's copy of the fixture writer (numpy only, no images)
-    writes the JAX fixture's calib and LiDAR bins byte for byte for the
-    same seed, and its 2channel caches to float32 rounding (the JAX
-    fixture expands them through the JAX package's native library where
-    it loads, the port through the numpy path)."""
+    """The port's copy of the fixture writer writes the JAX fixture's
+    calib, jpgs and LiDAR bins byte for byte for the same seed, and its
+    2channel caches to float32 rounding (the JAX fixture expands them
+    through the JAX package's native library where it loads, the port
+    through the numpy path)."""
     from fusiondepth_torch.data import fixtures
 
     a, b = tmp_path / "jax", tmp_path / "port"
     build_synthetic_kitti_tree(str(a), n_frames=1)
     fixtures.build_synthetic_kitti_tree(str(b), n_frames=1)
-    files = sorted(p.relative_to(a) for p in a.rglob("*") if p.is_file()
-                   and p.suffix != ".jpg")
-    assert len(files) == 6
+    files = sorted(p.relative_to(a) for p in a.rglob("*") if p.is_file())
+    assert len(files) == 7
+    assert sorted(p.relative_to(b) for p in b.rglob("*")
+                  if p.is_file()) == files
     for f in files:
         if f.suffix == ".npy":
             np.testing.assert_allclose(np.load(b / f), np.load(a / f),
                                        rtol=1e-6, err_msg=str(f))
         else:
             assert (a / f).read_bytes() == (b / f).read_bytes(), f
-    assert not list(b.rglob("*.jpg"))
 
 
 def test_run_inf_gdc_needs_a_card_unless_told_cpu(monkeypatch):

@@ -575,20 +575,21 @@ def test_3xtf32_conv_is_fp32_accurate_and_1xtf32_is_not():
 
 def _path_convs():
     """(B, H, W, Ci, Co, reflect) of every 3x3 conv kernel call of the
-    batch-12 train step and the batch-4 refine step at 640x192 (each call
-    also runs its dgrad and wgrad when it is trained), read from the
-    models: layer1's fused blocks of the four ResNet-18 encoders (the
-    pose encoders take both frame pairs, 2B images) at H/4, and every
-    ConvBlock of the stage-1 depth decoder and of the refine2d decoder at
-    its level (upconv_i_0 at level i + 1, upconv_i_1 and dispconv_i at
-    level i)."""
+    batch-12 train step and the batch-4 refine step at 640x192 and of the
+    batch-4 completion step at 1216x352 (each call also runs its dgrad and
+    wgrad when it is trained), read from the models: layer1's fused blocks
+    of the ResNet-18 encoders (the pose encoders take both frame pairs, 2B
+    images; the completion step's R50 depth and beam encoders have no
+    fused block) at H/4, and every ConvBlock of the stage-1 depth decoder
+    (R18 widths, and R50 widths for completion) and of the refine2d
+    decoder at its level (upconv_i_0 at level i + 1, upconv_i_1 and
+    dispconv_i at level i)."""
     from fusiondepth_torch.config import Config
     from fusiondepth_torch.models.depth_decoder import ConvBlock, DepthDecoder
     from fusiondepth_torch.models.resnet import (RESNET_FEATURE_CHANNELS,
                                                  BasicBlock, ResnetEncoder)
 
     cfg = Config(num_layers=18, height=192, width=640)
-    H, W = cfg.height, cfg.width
     gen = torch.Generator().manual_seed(0)
     with torch.device("meta"):
         layer1 = [(m.conv1.weight.shape, m.conv2.weight.shape)
@@ -599,9 +600,15 @@ def _path_convs():
                 DepthDecoder(ch, scales=cfg.scales, road=True,
                              catxy=cfg.catxy, deep=cfg.refine2d_deep,
                              generator=gen))
+    completion = DepthDecoder(RESNET_FEATURE_CHANNELS[50], scales=cfg.scales)
+    # (B, H, W, the images of each R18 encoder, the decoders): RGB, beam
+    # and the two pose encoders; completion's two R18 pose encoders
+    steps = ((12, 192, 640, (12, 12, 24, 24), decoders[:1]),
+             (4, 192, 640, (4, 4, 8, 8), decoders),
+             (4, 352, 1216, (8, 8), (completion,)))
     calls = set()
-    for B, decs in ((12, decoders[:1]), (4, decoders)):
-        for n in (B, B, 2 * B, 2 * B):  # RGB, beam and the pose encoders
+    for B, H, W, images, decs in steps:
+        for n in images:
             for shapes in layer1:
                 for co, ci, _, _ in shapes:
                     calls.add((n, H // 4, W // 4, ci, co, False))
@@ -618,12 +625,19 @@ def _path_convs():
 
 def test_conv_tiles_fit_every_conv_of_the_main_paths():
     """Every tile and split that conv_tiles picks for the convs of the b12
-    train step and the b4 refine step is one the kernels take, every
-    wgrad run holds at least one pixel tile, and every wgrad grid fills
-    at least one wave of the H100's 132 SMs."""
+    train step, the b4 refine step and the b4 completion step is one the
+    kernels take, every wgrad run holds at least one pixel tile, and every
+    wgrad grid fills at least one wave of the H100's 132 SMs."""
     calls = _path_convs()
     # layer1 at b12, b24, b4, b8; stage 1's 14 and refine2d's 24 convs
     assert len(calls) >= 4 + 14
+    # completion: the R50 decoder's stride-32 map, 11 x 38 (H odd, W no
+    # multiple of the forward's 32-pixel tile), its 2048 + 1024 = 3072
+    # input channels there (upconv_4_1 takes 256 + 1024 skip), and the
+    # scale-0 convs at 352 x 1216
+    assert (4, 11, 38, 2048, 256, True) in calls
+    assert any(c[:3] == (4, 352, 1216) for c in calls)
+    assert (8, 88, 304, 64, 64, False) in calls
     assert any(ci % conv3x3.CHUNK for _, _, _, ci, _, _ in calls)  # K tails
     assert any(co == 1 for *_, co, _ in calls)  # the heads: N tails
     for B, H, W, Ci, Co, reflect in calls:

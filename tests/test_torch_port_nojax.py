@@ -1,7 +1,9 @@
 """The port must run where JAX is not installed: importing every module of
 fusiondepth_torch (stage 2 included: gdc, the KNN and reprojection
-kernels, the refiner and its drivers), its CLIs (the trainer, inference,
-evaluation, inf_gdc and refiner) and chip_smoke.py loads no module of
+kernels, the refiner and its drivers, completion and the bench), its
+CLIs (the trainer, inference, evaluation, inf_gdc, refiner, completor,
+evaluate_completion, gen2cha_completion, export_detection and bench) and
+chip_smoke.py loads no module of
 jax, jaxlib, flax or the JAX package (fusiondepth_tpu). Checked in a
 fresh interpreter, since this test process has imported JAX already
 (tests/conftest.py)."""
@@ -30,6 +32,13 @@ import fusiondepth_torch.training.gdc_driver
 import fusiondepth_torch.gdc.gdc
 import fusiondepth_torch.kernels.knn
 import fusiondepth_torch.kernels.reproj
+import fusiondepth_torch.training.completor
+import fusiondepth_torch.data.completion_dataset
+import fusiondepth_torch.bench
+import fusiondepth_torch.completor
+import fusiondepth_torch.evaluate_completion
+import fusiondepth_torch.gen2cha_completion
+import fusiondepth_torch.export_detection
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax",
@@ -44,5 +53,5 @@ def test_port_imports_no_jax():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     n, verdict = r.stdout.strip().splitlines()[-1].split(" ", 1)
-    assert int(n) >= 58, r.stdout  # every module of the port was imported
+    assert int(n) >= 65, r.stdout  # every module of the port was imported
     assert verdict == "clean", r.stdout
