@@ -70,7 +70,20 @@ order, it:
    best_completion checkpoint saved, then reloaded into a new Completor
    that must predict the same depths), and times each kernel's calls of
    the batch-4 step and the step through the kernels against all-plain;
-9. times each kernel against its plain version (and one PyTorch call that
+9. the stage-1 training variants (ResNet-18, 640x192, fp32, `VARIANTS`):
+   A (v1_multiscale + use_stereo + posecnn, automask on) and B (shared
+   + use_stereo + predictive_mask + disable_automasking) each hold every
+   kernel on the calls of a batch-2 and a batch-12 step at the
+   tolerances of 5 (the backward ones also with unit-scale cotangents),
+   a whole batch-2 step against all-plain and float64 as in 5, drive
+   Trainer.run_epoch over 36 frames (3 steps at batch 12) with the counts
+   set to 0 before and read after (every training kernel must have run),
+   and time each kernel's calls of the batch-12 step and the step against
+   all-plain; C (pose_model_input="all") drives the run_epoch only; then
+   evaluate over the GDC drive's frames through the forward kernels with
+   visualize and per_semantic (over mask PNGs written here), and with
+   eval_split="benchmark", checking the files each writes;
+10. times each kernel against its plain version (and one PyTorch call that
    computes the same function, where there is one; for the KNN, chunked
    cdist + topk, two calls) over the calls of a batch-12 train step (the
    KNN: one GDC frame; one line per call as well), the steps through the
@@ -78,12 +91,13 @@ order, it:
    after warm-up, each pair in the order plain, kernel, kernel, plain;
    checks that two wgrad launches on a batch-12 layer1 call are
    bit-equal;
-10. prints the card's name and power limit (nvidia-smi), then one JSON
+11. prints the card's name and power limit (nvidia-smi), then one JSON
    line {"kernels": [...]} of the 11 kernels, each with the launches of
    the path that drives it and its bound (the conv rows at the 3xTF32
    rate, see PEAK_TF32_S, with their achieved TFLOP/s), and for the ten
    of the completion step a "completion" entry with that path's launches,
-   times and bound, then, last,
+   times and bound, and for the ten training kernels a "variants" entry
+   (A and B: launches, times and bound; C: launches), then, last,
    {"ok": true, "device": {...}}. After the build it prints what ptxas
    reported for the conv kernels, the pool backward, the warp forward and
    backward, the reprojection-loss forward and backward and
@@ -227,6 +241,19 @@ COMPLETION_HW = (352, 1216)
 COMPLETION_BATCH, COMPLETION_FRAMES, COMPLETION_VAL = 4, 12, 3
 # the completion step's kernels: every stage-1 kernel (the KNN is GDC's)
 COMPLETION_KERNELS = TRAIN_KERNELS
+# the stage-1 training variants (ResNet-18, 640x192, fp32): A and B are
+# held and timed like the train step and driven through Trainer.run_epoch,
+# C is driven only (its kernel calls have the default step's shapes; its
+# pose encoder's 9-channel stem is cuDNN's)
+VARIANTS = {
+    "A": dict(v1_multiscale=True, use_stereo=True,
+              pose_model_type="posecnn", frame_ids=(0, -1, 1, "s")),
+    "B": dict(pose_model_type="shared", use_stereo=True,
+              predictive_mask=True, disable_automasking=True,
+              frame_ids=(0, -1, 1, "s")),
+    "C": dict(pose_model_input="all"),
+}
+HELD_VARIANTS = ("A", "B")
 
 
 def emit(**kw):
@@ -652,22 +679,29 @@ def time_kernels(calls, path, iters=10):
 
 def step_noise(cfg: Config, batch: int, dev):
     """Automask noise for one step, 1e-5 * N(0, 1) per scale, from numpy:
-    the same draws for the kernel and the all-plain step."""
+    the same draws for the kernel and the all-plain step. Each scale's has
+    the shape of its identity maps: (sources, batch, H, W), one candidate
+    under avg_reprojection, and the scale's own H, W under
+    v1_multiscale."""
     rng = np.random.default_rng(5)
-    n = len(cfg.frame_ids) - 1
+    n = 1 if cfg.avg_reprojection else len(cfg.frame_ids) - 1
     return [torch.as_tensor(rng.standard_normal(
-        (n, batch, cfg.height, cfg.width)) * 1e-5, dtype=torch.float32,
-        device=dev) for _ in cfg.scales]
+        (n, batch) + ((cfg.height >> s, cfg.width >> s) if cfg.v1_multiscale
+                      else (cfg.height, cfg.width))) * 1e-5,
+        dtype=torch.float32, device=dev) for s in cfg.scales]
 
 
 def step_grads(cfg, nets, batch, noise, loss_of=loss_fn):
     """(loss, {param: grad}) of one training-mode step of the loss
-    `loss_of` (the stage-1 loss, or `completion_loss`), no update."""
+    `loss_of` (the stage-1 loss, or `completion_loss`), no update; the
+    parameters the loss does not read (the beam-pose encoder of the
+    posecnn and shared pose types) have no gradient and are left out."""
     nets.zero_grad(set_to_none=True)
     loss, _ = loss_of(cfg, nets, batch, noise=noise)
     loss.backward()
     return loss.item(), {n: p.grad.detach().clone()
-                         for n, p in nets.named_parameters()}
+                         for n, p in nets.named_parameters()
+                         if p.grad is not None}
 
 
 def nudged(batch, seed: int):
@@ -1460,6 +1494,177 @@ def completion_phase(dev, tmp):
     return err, launches, ktimes
 
 
+def variant_checks(name, cfg, trainer, data, dev):
+    """Configuration `name` held like the train step: every kernel on the
+    calls of a batch-2 and a batch-12 step (the backward ones also with
+    unit-scale cotangents), a whole batch-2 step against all-plain and
+    float64 (`hold_step`), on seeded weights. Returns the errors and the
+    batch-12 step's calls."""
+    trainer.nets.load_state_dict(seeded_weights(cfg).state_dict())
+    nets = trainer.nets
+    small = trainer.put_batch(collate([data[i] for i in range(CHECK_BATCH)]))
+    big = trainer.put_batch(collate([data[i] for i in range(TRAIN_BATCH)]))
+    noise = step_noise(cfg, CHECK_BATCH, dev)
+    calls, calls_big = [], []
+    with all_plain(record=calls):
+        loss_fn(cfg, nets, small, noise=noise)[0].backward()
+    with all_plain(record=calls_big):
+        loss_fn(cfg, nets, big)[0].backward()
+    nets.zero_grad(set_to_none=True)
+    err = check_step_calls(calls + calls_big, dev, f"variant_{name}")
+    require(set(err) == set(TRAIN_KERNELS),
+            f"variant {name}: the step called {sorted(err)}")
+    del calls
+
+    def grads64():
+        cfg64 = cfg.replace(compute_dtype="float64")
+        ref = copy.deepcopy(nets).double()
+        ref.cfg = cfg64
+        scales = {}
+        with summand_scales(ref, scales):
+            loss, grads = step_grads(cfg64, ref, {k: v.double() for k, v in
+                                                  small.items()},
+                                     [n.double() for n in noise])
+        return loss, grads, scales
+
+    hold_step(f"variant_{name}_step_vs_all_plain",
+              lambda b, n: step_grads(cfg, nets, b, n), small, noise,
+              grads64, TRAIN_KERNELS)
+    nets.zero_grad(set_to_none=True)
+    return err, calls_big, big
+
+
+def variant_evaluate(dev, tmp, weights, tree_frames):
+    """evaluate over the GDC drive's frames through the forward kernels
+    with visualize and per_semantic (over mask PNGs written here), then
+    with eval_split="benchmark"; checks the files each writes and the
+    per-class table."""
+    import cv2
+
+    from fusiondepth_torch.training import eval_driver
+
+    n = len(tree_frames)
+    masks = os.path.join(tmp, "semantic_masks")
+    os.makedirs(masks, exist_ok=True)
+    rng = np.random.default_rng(12)
+    for i in range(n):
+        cv2.imwrite(os.path.join(masks, f"pred_mask{i}.png"), rng.integers(
+            0, eval_driver.SEMANTIC_CLASSES, NATIVE).astype(np.uint8))
+    log = os.path.join(tmp, "variants_eval")
+    cfg = Config(num_layers=18, height=HEIGHT, width=WIDTH,
+                 weights_init="scratch", eval_batch_size=1, log_dir=log,
+                 data_path=tree_frames.root, load_weights_folder=weights,
+                 visualize=True, per_semantic=True,
+                 semantic_mask_path=masks)
+    tables = []
+    per_semantic = eval_driver.evaluate_per_semantic
+    eval_driver.evaluate_per_semantic = \
+        lambda *a: tables.append(per_semantic(*a)) or tables[-1]
+    try:
+        reset_launches()
+        t = time.perf_counter()
+        metrics = evaluate(cfg, tree_frames, device=dev)
+        secs = time.perf_counter() - t
+        launches = dict(LAUNCHES)
+    finally:
+        eval_driver.evaluate_per_semantic = per_semantic
+    vis = [cv2.imread(os.path.join(log, "visualization", f"{i}depth.png"))
+           for i in range(n)]
+    require(all(v is not None and v.shape == (HEIGHT, WIDTH, 3)
+                for v in vis), "evaluate wrote no visualization")
+    require(len(tables) == 1 and tables[0].shape == (
+        eval_driver.SEMANTIC_CLASSES, 7) and bool(np.isfinite(
+            tables[0]).all()) and np.count_nonzero(tables[0][:, 0]) > 0,
+        "evaluate made no per-semantic table")
+    require(metrics is not None and all(np.isfinite(v)
+                                        for v in metrics.values()),
+            f"evaluate: {metrics}")
+    for k in FORWARD_KERNELS:
+        require(launches[k] > 0, f"evaluate launched no {k}")
+    reset_launches()
+    bench = evaluate(cfg.replace(eval_split="benchmark", visualize=False,
+                                 per_semantic=False), tree_frames,
+                     device=dev)
+    bench_launches = dict(LAUNCHES)
+    pngs = [cv2.imread(os.path.join(log, "benchmark_predictions",
+                                    f"{i:010d}.png"), cv2.IMREAD_UNCHANGED)
+            for i in range(n)]
+    require(bench is None and all(
+        p is not None and p.dtype == np.uint16 and p.shape == (352, 1216)
+        for p in pngs), "evaluate wrote no benchmark PNGs")
+    require(bench_launches["conv3x3_reflect"] > 0,
+            "the benchmark export ran no kernel")
+    emit(phase="evaluate", mode="visualize+per_semantic", frames=n,
+         seconds=secs, metrics=metrics, launches=launches,
+         classes_with_pixels=int(np.count_nonzero(tables[0][:, 0])))
+    emit(phase="evaluate", mode="benchmark", frames=n,
+         pngs=[list(p.shape) for p in pngs],
+         max_depth_m=float(max(p.max() for p in pngs)) / 256.0,
+         launches=bench_launches)
+
+
+def variants_phase(dev, tmp, weights, tree_frames):
+    """The stage-1 training variants (`VARIANTS`: ResNet-18, 640x192,
+    fp32). A and B: `variant_checks` on seeded weights, then
+    Trainer.run_epoch over 36 frames (3 steps at batch 12) with the counts
+    set to 0 before and read after (every training kernel must have run,
+    the losses be finite), then each kernel's calls of the batch-12 step
+    and the step timed against all-plain. C: the run_epoch only. Then
+    `variant_evaluate`. Returns the errors, launches and timings of A and
+    B and the launches of C."""
+    errs, launches, times = [], {}, {}
+    for name, flags in VARIANTS.items():
+        cfg = Config(num_layers=18, height=HEIGHT, width=WIDTH,
+                     batch_size=TRAIN_BATCH, weights_init="scratch",
+                     log_dir=tmp, num_workers=4, log_frequency=1,
+                     model_name=f"smoke_variant_{name}", **flags)
+        data = SyntheticDataset(cfg, length=TRAIN_FRAMES, seed=10)
+        trainer = Trainer(cfg, train_dataset=data, device=dev)
+        require(trainer.cfg.frame_ids == cfg.frame_ids,
+                f"variant {name}: frames {trainer.cfg.frame_ids}")
+        if name in HELD_VARIANTS:
+            err, calls, big = variant_checks(name, cfg, trainer, data, dev)
+            errs.append(err)
+        torch.cuda.synchronize()
+        reset_launches()
+        t = time.perf_counter()
+        losses = [float(x) for x in trainer.run_epoch()]
+        torch.cuda.synchronize()
+        launches[name] = dict(LAUNCHES)
+        emit(phase="variant_run_epoch", variant=name, flags=flags,
+             steps=len(losses), batch=TRAIN_BATCH,
+             seconds=time.perf_counter() - t, losses=losses,
+             launches=launches[name])
+        require(len(losses) == TRAIN_FRAMES // TRAIN_BATCH,
+                f"variant {name}: {len(losses)} steps")
+        require(all(np.isfinite(losses)),
+                f"variant {name}: non-finite losses {losses}")
+        for k in TRAIN_KERNELS:
+            require(launches[name][k] > 0,
+                    f"variant {name}: kernel {k} was never launched")
+        if name not in HELD_VARIANTS:
+            continue
+        times[name] = time_kernels(calls, f"variant_{name}_batch12",
+                                   iters=5)
+        del calls
+
+        def plain_step():
+            with all_plain():
+                trainer.run_step(big, on_device=True)
+
+        step_ms, plain_ms = paired_ms(
+            lambda: trainer.run_step(big, on_device=True), plain_step,
+            iters=3, warmup=1)
+        emit(timing="variant_step", variant=name, batch=TRAIN_BATCH,
+             ms=step_ms, plain_ms=plain_ms,
+             samples_per_s=TRAIN_BATCH / step_ms * 1e3,
+             plain_samples_per_s=TRAIN_BATCH / plain_ms * 1e3,
+             kernels_ms=sum(r["ms"] for r in times[name].values()))
+        del trainer, big
+    variant_evaluate(dev, tmp, weights, tree_frames)
+    return errs, launches, times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
@@ -1511,6 +1716,9 @@ def main() -> int:
         err, launches["completion"], ctimes = completion_phase(dev, tmp)
         errs.append(err)
         lap("completion")
+        verrs, vlaunches, vtimes = variants_phase(dev, tmp, weights, frames)
+        errs.extend(verrs)
+        lap("variants")
     emit(phase_seconds=seconds, build_seconds=build_s,
          total_seconds=time.perf_counter() - t0)
     launches.update(launches_infer)
@@ -1521,6 +1729,10 @@ def main() -> int:
     for name in COMPLETION_KERNELS:
         emit(timing=name, per="all calls of one completion step",
              card=card, **ctimes[name])
+    for v, vt in vtimes.items():
+        for name in TRAIN_KERNELS:
+            emit(timing=name, per=f"all calls of one variant {v} step",
+                 card=card, **vt[name])
 
     print(card)
     kernels = []
@@ -1544,6 +1756,16 @@ def main() -> int:
                 "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                 "bound_by": c["bound_by"], "library_ms": c["library_ms"],
                 "library_of_ms": c["library_of_ms"], "tflops": c["tflops"]}
+        if name in TRAIN_KERNELS:
+            kernels[-1]["variants"] = {v: {"launches": vlaunches[v][name]}
+                                       for v in VARIANTS}
+            for v, vt in vtimes.items():
+                c = vt[name]
+                kernels[-1]["variants"][v].update(
+                    calls_per_step=c["calls"], ms=c["ms"],
+                    plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
+                    bound_by=c["bound_by"], library_ms=c["library_ms"],
+                    library_of_ms=c["library_of_ms"], tflops=c["tflops"])
     kernels[-1]["cdist_topk_ms"] = times["knn"]["cdist_topk_ms"]
     emit(kernels=kernels)
     emit(ok=True, device={"platform": "gpu",

@@ -1,12 +1,18 @@
 """The model bundle: RGB ResNet encoder and the 2-channel LiDAR beam
 encoder, fused additively into the U-Net depth decoder, and the pose
-networks (a pose encoder over frame pairs, a beam-pose encoder over their
-LiDAR, the pose decoder).
+networks.
 
-Counterpart of `fusiondepth_tpu/models/fusion.py::FusionNets` for
-`forward_depth`, `predict_poses` (separate_resnet pose, frame pairs) and
-`forward`. Batch contract, as in the JAX package (NHWC, `F` indexes
-`cfg.frame_ids`):
+Counterpart of `fusiondepth_tpu/models/fusion.py::FusionNets`:
+`forward_depth`, `predict_poses` and `forward` for every pose type of the
+JAX package:
+- "separate_resnet": a pose encoder over the stacked frames and a
+  beam-pose encoder over their LiDAR, then the pose decoder;
+- "posecnn": PoseCNN over the stacked frames;
+- "shared": the depth encoder runs over every frame in one pass
+  (`shared_features`) and the pose decoder reads its last level;
+with pose_model_input "pairs" (one pose per (earlier, later) pair with
+frame 0) or "all" (every frame but "s" at once). Batch contract, as in
+the JAX package (NHWC, `F` indexes `cfg.frame_ids`):
 
   color_aug      (B, F, H, W, 3)   network input frames
   two_channel    (B, F, H, W, 2)   expanded-LiDAR 2-channel encoding
@@ -27,7 +33,7 @@ from torch import nn
 
 from fusiondepth_torch.config import Config
 from fusiondepth_torch.models.depth_decoder import DepthDecoder
-from fusiondepth_torch.models.pose import PoseDecoder
+from fusiondepth_torch.models.pose import PoseCNN, PoseDecoder
 from fusiondepth_torch.models.resnet import RESNET_FEATURE_CHANNELS, \
     ResnetEncoder
 from fusiondepth_torch.ops.pose import transformation_from_parameters
@@ -60,9 +66,11 @@ class FusionNets(nn.Module):
     folded_decoder, s2d_stem, pack2_encoder, paired_encoders) are accepted
     and change nothing: they re-lay the same math out for the TPU.
 
-    The pose networks are built for pose_model_type "separate_resnet" (the
-    default); the "shared" and "posecnn" pose types are not ported yet, and
-    predict_poses raises for them.
+    The beam-pose encoder exists whenever the beam encoder does, as in the
+    JAX package's parameter tree, though only the separate_resnet pairs
+    read it. With pose_model_input "all", "s" (the stereo frame) would
+    count as a pose input at init but not in the forward, which the JAX
+    package cannot init either: that combination raises ValueError.
 
     `pose_depth` gives the pose and beam-pose encoders a ResNet depth of
     their own (default cfg.num_layers): the completor's
@@ -105,17 +113,33 @@ class FusionNets(nn.Module):
                 num_output_channels=len(cfg.frame_ids) - 1,
                 generator=generator)
         self.pose_encoder = self.beam_encoder_pose = self.pose = None
+        n = cfg.num_pose_frames
+        if cfg.use_pose_net and cfg.pose_model_input == "all" \
+                and "s" in cfg.frame_ids:
+            raise ValueError(
+                "pose_model_input='all' with the stereo frame 's': the pose "
+                "nets would be built for it and never given it (the JAX "
+                "package fails at init on this too)")
         if cfg.use_pose_net and cfg.pose_model_type == "separate_resnet":
-            n = cfg.num_pose_frames
             self.pose_encoder = ResnetEncoder(self.pose_depth, 3 * n,
                                               generator=generator)
-            if cfg.beam_encoder:
-                self.beam_encoder_pose = ResnetEncoder(
-                    self.pose_depth, 2 * n, generator=generator)
-            pose_ch = RESNET_FEATURE_CHANNELS[self.pose_depth][-1]
-            self.pose = PoseDecoder(pose_ch, num_input_features=1,
-                                    num_frames_to_predict_for=2,
-                                    generator=generator)
+        if cfg.beam_encoder:
+            self.beam_encoder_pose = ResnetEncoder(
+                self.pose_depth, 2 * n, generator=generator)
+        if cfg.use_pose_net:
+            if cfg.pose_model_type == "separate_resnet":
+                self.pose = PoseDecoder(
+                    RESNET_FEATURE_CHANNELS[self.pose_depth][-1],
+                    num_input_features=1, num_frames_to_predict_for=2,
+                    generator=generator)
+            elif cfg.pose_model_type == "shared":
+                self.pose = PoseDecoder(ch[-1], num_input_features=n,
+                                        generator=generator)
+            elif cfg.pose_model_type == "posecnn":
+                self.pose = PoseCNN(n, generator=generator)
+            else:
+                raise ValueError(
+                    f"unknown pose_model_type {cfg.pose_model_type!r}")
         self.to(device=device, dtype=model_dtype(cfg))
         self.eval()
 
@@ -142,6 +166,13 @@ class FusionNets(nn.Module):
         else:
             enc_in = color0
         feats = self.encoder(_nchw(enc_in))
+        return self._decode(batch, feats), feats
+
+    def _decode(self, batch: Dict[str, torch.Tensor],
+                feats: List[torch.Tensor]) -> Dict:
+        """The beam encoder on frame 0's LiDAR, the depth decoder on
+        `feats` and it, and the predictive-mask decoder on `feats`."""
+        cfg = self.cfg
         beam_feats = None
         if self.beam_encoder is not None:
             beam_feats = self.beam_encoder(_nchw(batch["two_channel"][:, 0]))
@@ -151,38 +182,86 @@ class FusionNets(nn.Module):
         if self.predictive_mask is not None:
             outputs["predictive_mask"] = {
                 k: _nhwc(v) for k, v in self.predictive_mask(feats).items()}
-        return outputs, feats
+        return outputs
 
-    def predict_poses(self, batch: Dict[str, torch.Tensor]
+    def shared_features(self, batch: Dict[str, torch.Tensor]
+                        ) -> Dict[Any, List[torch.Tensor]]:
+        """pose_model_type "shared": every frame through the depth encoder
+        in one pass of B x F frames, so training-mode BN statistics pool
+        over the frames (reference trainer.py:276-287). Returns
+        {frame id: NCHW pyramid}. Uses the BN mode the bundle is in."""
+        color = batch["color_aug"]
+        B, F = color.shape[:2]
+        feats = self.encoder(_nchw(color.reshape((B * F,) + color.shape[2:])))
+        return {f: [lvl.reshape((B, F) + lvl.shape[1:])[:, i]
+                    for lvl in feats]
+                for i, f in enumerate(self.cfg.frame_ids)}
+
+    def predict_poses(self, batch: Dict[str, torch.Tensor],
+                      features: Optional[Dict[Any, List[torch.Tensor]]] = None
                       ) -> Dict[Any, torch.Tensor]:
         """Relative pose of each temporal source frame (reference
         trainer.py:321-388): {("axisangle", 0, f), ("translation", 0, f):
-        (B, 2, 1, 3), ("cam_T_cam", 0, f): (B, 4, 4)}. As in the JAX
-        package, all frame pairs go through the pose encoders in one pass,
-        stacked on the batch axis, so training-mode BN statistics pool over
-        the pairs (PARITY.md). Uses the BN mode the bundle is in."""
+        (B, n_pred, 1, 3), ("cam_T_cam", 0, f): (B, 4, 4)}; "s" gets
+        none (its transform is the batch's stereo_T). `features` is
+        `shared_features`' output, which the shared pose type reads.
+
+        With pose_model_input "pairs", every (earlier, later) pair with
+        frame 0 goes through the pose nets in one pass, stacked on the
+        batch axis, and cam_T_cam is inverted for earlier frames. As in the
+        JAX package the separate_resnet encoders' training-mode BN
+        statistics then pool over the pairs (PARITY.md); the JAX package
+        runs the posecnn and shared pairs one by one, which computes the
+        same, since those nets have no BN. With "all", one pass over every
+        frame but "s" predicts all the poses, nothing is inverted and no
+        beam feature is used. Uses the BN mode the bundle is in."""
         cfg = self.cfg
-        if self.pose is None or cfg.num_pose_frames != 2:
-            raise NotImplementedError(
-                f"pose_model_type={cfg.pose_model_type!r}, pose_model_input="
-                f"{cfg.pose_model_input!r}: the port predicts poses with "
-                "separate_resnet over frame pairs only")
         fid = {f: i for i, f in enumerate(cfg.frame_ids)}
-        temporal = [f for f in cfg.frame_ids[1:] if f != "s"]
-        pairs = [((f, 0) if f < 0 else (0, f)) for f in temporal]
+        kind = cfg.pose_model_type
         B = batch["color_aug"].shape[0]
+        outputs = {}
+        if cfg.num_pose_frames != 2:
+            frames = [f for f in cfg.frame_ids if f != "s"]
+            if kind == "shared":
+                aa, t = self.pose([features[f][-1] for f in frames])
+            else:
+                colors = _nchw(torch.cat(
+                    [batch["color_aug"][:, fid[f]] for f in frames], dim=-1))
+                if kind == "posecnn":
+                    aa, t = self.pose(colors)
+                else:
+                    aa, t = self.pose([self.pose_encoder(colors)[-1]])
+            for i, f in enumerate(cfg.frame_ids[1:]):
+                if f == "s":
+                    continue
+                outputs[("axisangle", 0, f)] = aa
+                outputs[("translation", 0, f)] = t
+                outputs[("cam_T_cam", 0, f)] = \
+                    transformation_from_parameters(aa[:, i, 0], t[:, i, 0])
+            return outputs
+
+        temporal = [f for f in cfg.frame_ids[1:] if f != "s"]
+        if not temporal:
+            return outputs
+        pairs = [((f, 0) if f < 0 else (0, f)) for f in temporal]
 
         def stacked(key):
             return _nchw(torch.cat([torch.cat(
                 [batch[key][:, fid[a]], batch[key][:, fid[b]]], dim=-1)
                 for a, b in pairs], dim=0))
 
-        last = self.pose_encoder(stacked("color_aug"))[-1]
-        beam_last = None
-        if self.beam_encoder_pose is not None:
-            beam_last = self.beam_encoder_pose(stacked("two_channel"))[-1]
-        aa, t = self.pose([last], beam_last_feature=beam_last)
-        outputs = {}
+        if kind == "shared":
+            aa, t = self.pose([torch.cat([features[p[j]][-1] for p in pairs])
+                               for j in (0, 1)])
+        elif kind == "posecnn":
+            aa, t = self.pose(stacked("color_aug"))
+        else:
+            last = self.pose_encoder(stacked("color_aug"))[-1]
+            beam_last = None
+            if self.beam_encoder_pose is not None:
+                beam_last = self.beam_encoder_pose(
+                    stacked("two_channel"))[-1]
+            aa, t = self.pose([last], beam_last_feature=beam_last)
         for pi, f in enumerate(temporal):
             aa_i, t_i = aa[pi * B:(pi + 1) * B], t[pi * B:(pi + 1) * B]
             outputs[("axisangle", 0, f)] = aa_i
@@ -194,10 +273,22 @@ class FusionNets(nn.Module):
     def forward(self, batch: Dict[str, torch.Tensor],
                 train: bool = True) -> Dict[Any, Any]:
         """Depth branch and, when the config uses a pose net, the poses
-        (`fusiondepth_tpu/models/fusion.py::FusionNets.forward`). With
-        `train` the BatchNorms use batch statistics and update their
-        running ones in place."""
+        (`fusiondepth_tpu/models/fusion.py::FusionNets.forward`). With the
+        shared pose type the depth decoder reads frame 0's levels of
+        `shared_features`. With `train` the BatchNorms use batch
+        statistics and update their running ones in place."""
+        cfg = self.cfg
+        if not cfg.use_pose_net:
+            return self.forward_depth(batch, train=train)[0]
+        if cfg.pose_model_type == "shared":
+            self.train(train)
+            per_frame = self.shared_features(batch)
+            # frame 0's levels are strided views of the stacked pass; the
+            # decoder's conv kernels take contiguous maps
+            outputs = self._decode(batch, [f.contiguous()
+                                           for f in per_frame[0]])
+            outputs.update(self.predict_poses(batch, per_frame))
+            return outputs
         outputs, _ = self.forward_depth(batch, train=train)
-        if self.cfg.use_pose_net:
-            outputs.update(self.predict_poses(batch))
+        outputs.update(self.predict_poses(batch))
         return outputs

@@ -4,7 +4,8 @@ state dicts, both ways, for the depth and pose networks.
 A JAX FusionNets tree is `{net: {"params": ..., "batch_stats": ...}}`,
 nested dicts of arrays; this module needs only numpy. The nets covered are
 `encoder`, `beam_encoder`, `depth`, `predictive_mask`, `pose_encoder`,
-`beam_encoder_pose` and `pose` (the PoseDecoder), and the refiner's
+`beam_encoder_pose` and `pose` (the PoseDecoder, or PoseCNN), and the
+refiner's
 `refine2d` decoder (its JAX variables `{"params": ...}` under that key);
 other subtrees are skipped. The trees the JAX package builds with its
 default TPU layout flags have the generic layout's names and shapes, so
@@ -17,8 +18,9 @@ Mapping, JAX -> port:
   encoder layer{s}_{b}       -> layer{s}.{b}
   downsample_conv / _bn      -> downsample.0 / downsample.1
 Decoder module names (`upconv_4_0/conv`, `dispconv_0/conv`, and with
-`deep` `upconv_4_0/a/conv`, `upconv_4_0/b/conv`) and pose decoder ones
-(`squeeze`, `pose_0`..`pose_2`) are the same.
+`deep` `upconv_4_0/a/conv`, `upconv_4_0/b/conv`), pose decoder ones
+(`squeeze`, `pose_0`..`pose_2`) and PoseCNN ones (`conv_0`..`conv_6`,
+`pose_conv`: HWIO kernels and biases) are the same.
 """
 
 from __future__ import annotations

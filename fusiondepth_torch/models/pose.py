@@ -1,11 +1,17 @@
-"""Pose decoder over the pose encoder's last feature, NCHW (reference
-networks/pose_decoder.py:8-51; counterpart of
-`fusiondepth_tpu/models/pose.py::PoseDecoder`).
+"""Pose networks, NCHW (counterpart of `fusiondepth_tpu/models/pose.py`):
 
-1x1 squeeze -> ReLU -> two 3x3 convs with ReLU -> 1x1 to 6 * n_pred ->
-global mean -> 0.01 * (axisangle, translation). Its convs are plain
-zero-padded convolutions with bias, left to cuDNN on a card as the JAX
-package leaves them to XLA. PoseCNN is not ported yet.
+- PoseDecoder over encoder features (reference
+  networks/pose_decoder.py:8-51): 1x1 squeeze -> ReLU -> two 3x3 convs
+  with ReLU -> 1x1 to 6 * n_pred -> global mean -> 0.01 * (axisangle,
+  translation);
+- PoseCNN (reference networks/pose_cnn.py:7-44): seven stride-2 convs
+  with ReLU over the channel-stacked frames, a 1x1 `pose_conv`, the global
+  mean and the same 0.01 scale.
+
+Their convs are plain zero-padded convolutions with bias, left to cuDNN
+on a card as the JAX package leaves them to XLA. Module names are the
+JAX package's (`squeeze`, `pose_0`..`pose_2`; `conv_0`..`conv_6`,
+`pose_conv`), so `models/jax_weights.py` carries them both ways.
 """
 
 from __future__ import annotations
@@ -48,4 +54,32 @@ class PoseDecoder(nn.Module):
         out = torch.relu(self.pose_1(out))
         out = self.pose_2(out).mean(dim=(2, 3))
         out = 0.01 * out.reshape(-1, self.n_pred, 1, 6)
+        return out[..., :3], out[..., 3:]
+
+
+class PoseCNN(nn.Module):
+    """Seven stride-2 convs on `num_input_frames` channel-stacked RGB
+    frames -> the poses of the num_input_frames - 1 others, each
+    (axisangle, translation) of shape (B, n - 1, 1, 3)."""
+
+    SPECS = ((16, 7, 2, 3), (32, 5, 2, 2), (64, 3, 2, 1), (128, 3, 2, 1),
+             (256, 3, 2, 1), (256, 3, 2, 1), (256, 3, 2, 1))
+
+    def __init__(self, num_input_frames: int = 2,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.n_pred = num_input_frames - 1
+        ci = 3 * num_input_frames
+        for i, (co, k, s, p) in enumerate(self.SPECS):
+            setattr(self, f"conv_{i}", nn.Conv2d(ci, co, k, s, p))
+            ci = co
+        self.pose_conv = nn.Conv2d(ci, 6 * self.n_pred, 1)
+        lecun_normal_(self, generator)
+
+    def forward(self, x: torch.Tensor):
+        """x: (B, 3 * num_input_frames, H, W)."""
+        for i in range(len(self.SPECS)):
+            x = torch.relu(getattr(self, f"conv_{i}")(x))
+        out = 0.01 * self.pose_conv(x).mean(dim=(2, 3)).reshape(
+            -1, self.n_pred, 1, 6)
         return out[..., :3], out[..., 3:]

@@ -38,8 +38,8 @@ from fusiondepth_torch.training.photometric import (
     compute_losses,
     generate_images_pred,
 )
-from fusiondepth_torch.training.train_state import check_train_supported, \
-    train_step
+from fusiondepth_torch.training.train_state import check_stage1_default, \
+    check_train_supported, train_step
 from fusiondepth_torch.training.trainer import TRAIN_KEYS
 from fusiondepth_torch.utils.logging import MetricLogger, sec_to_hm_str
 
@@ -138,6 +138,7 @@ class Completor:
         cfg = cfg.replace(num_layers=cfg.completion_num_layers,
                           num_epochs=cfg.completion_num_epochs)
         check_train_supported(cfg)
+        check_stage1_default(cfg, "the completor")
         if cfg.grad_accum_steps > 1:
             raise ValueError("completion takes whole-batch steps, as the "
                              "JAX completor does: grad_accum_steps must "

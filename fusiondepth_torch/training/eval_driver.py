@@ -4,8 +4,13 @@ runs the model over the eval split (the stage-1 depth branch, or with
 refine_2d the stage-2 refine pipeline; with the flip post-process when
 asked), optionally runs GDC on each predicted frame (eval_gdc), applies
 the protocol of `training/evaluation.py` (a copy of the JAX package's)
-and prints the 7-metric row. The visualize, per_semantic and
-benchmark-export outputs are not ported yet and raise.
+and prints the 7-metric row. Its outputs besides the metrics, as in the
+JAX package: MAGMA-colormapped disparity PNGs (visualize), a per-class
+breakdown over externally made segmentation masks (per_semantic), and,
+for eval_split="benchmark" (the KITTI benchmark's test set, which has no
+public ground truth), uint16 depth PNGs at 1216x352 instead of metrics.
+These are host work on the predicted disparities, with OpenCV as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -15,14 +20,17 @@ from typing import Optional
 
 import numpy as np
 import torch
+from PIL import Image
 
 from fusiondepth_torch.config import Config
 from fusiondepth_torch.data.loader import DataLoader
 from fusiondepth_torch.training.evaluation import (
     METRIC_NAMES,
     STEREO_SCALE_FACTOR,
+    compute_errors_np,
     evaluate_disparities,
     flip_postprocess,
+    garg_crop_mask,
 )
 from fusiondepth_torch.models.fusion import FusionNets
 from fusiondepth_torch.training.infer_driver import (
@@ -145,6 +153,81 @@ def gdc_on_disparities(cfg: Config, dataset, disps, device=None):
     return out
 
 
+def save_visualizations(cfg: Config, disps, out_dir: str) -> None:
+    """Colormapped disparity dumps (reference evaluate_depth.py:407-449's
+    magma rendering, minus the wandb/open3d hooks):
+    {i}{vis_name}depth.png, each disparity over its 95th percentile."""
+    import cv2
+
+    os.makedirs(out_dir, exist_ok=True)
+    for i, disp in enumerate(disps):
+        d = np.asarray(disp, np.float32)
+        vmax = np.percentile(d, 95)
+        norm = np.clip(d / max(vmax, 1e-9), 0, 1)
+        img = cv2.applyColorMap((norm * 255).astype(np.uint8),
+                                cv2.COLORMAP_MAGMA)
+        cv2.imwrite(os.path.join(out_dir, f"{i}{cfg.vis_name}depth.png"),
+                    img, [cv2.IMWRITE_PNG_COMPRESSION, 0])
+
+
+SEMANTIC_CLASSES = 34
+
+
+def evaluate_per_semantic(cfg: Config, disps, gts) -> Optional[np.ndarray]:
+    """Per-semantic-class metric breakdown (reference
+    evaluate_depth.py:451-467) over the masks pred_mask{i}.png under
+    cfg.semantic_mask_path (made by an external segmentation model):
+    each frame median-scaled inside the eigen crop, then the 7 metrics
+    per class, averaged over the frames weighted by the class's pixels.
+    Returns (SEMANTIC_CLASSES, 7), or None without the mask folder."""
+    import cv2
+
+    if not os.path.isdir(cfg.semantic_mask_path):
+        print(f"per_semantic: mask dir {cfg.semantic_mask_path!r} missing")
+        return None
+    rows = np.zeros((SEMANTIC_CLASSES, len(disps), 7))
+    counts = np.zeros((SEMANTIC_CLASSES, len(disps)))
+    for i, (disp, gt) in enumerate(zip(disps, gts)):
+        gh, gw = gt.shape
+        pred = 1.0 / np.maximum(
+            cv2.resize(np.asarray(disp, np.float32), (gw, gh)), 1e-12)
+        mask = (gt > 1e-3) & (gt < 80) & garg_crop_mask(gh, gw)
+        if mask.sum():
+            pred = pred * (np.median(gt[mask]) / np.median(pred[mask]))
+        sem = np.asarray(Image.open(os.path.join(
+            cfg.semantic_mask_path, f"pred_mask{i}.png")))
+        for sid in range(SEMANTIC_CLASSES):
+            m = mask & (sem == sid)
+            counts[sid, i] = m.sum()
+            if counts[sid, i] > 0:
+                p = np.clip(pred[m], 1e-3, 80)
+                rows[sid, i] = list(compute_errors_np(gt[m], p).values())
+    weights = counts / np.maximum(counts.sum(1, keepdims=True), 1)
+    per_class = (rows * weights[..., None]).sum(1)
+    for sid in range(SEMANTIC_CLASSES):
+        if counts[sid].sum() > 0:
+            print(f"  class {sid:2d}: absrel {per_class[sid, 0]:.3f} "
+                  f"({int(counts[sid].sum())} px)")
+    return per_class
+
+
+def save_benchmark_predictions(cfg: Config, disps) -> str:
+    """uint16 depth PNGs (depth * 256, the disparity resized to 1216x352
+    and scaled by STEREO_SCALE_FACTOR, capped at 80 m) under
+    <log_dir>/benchmark_predictions/{idx:010d}.png (reference
+    evaluate_depth.py:291-305). Returns the folder."""
+    import cv2
+
+    save_dir = os.path.join(cfg.log_dir, "benchmark_predictions")
+    os.makedirs(save_dir, exist_ok=True)
+    for idx, disp in enumerate(disps):
+        d = cv2.resize(np.asarray(disp, np.float32), (1216, 352))
+        depth = np.clip(STEREO_SCALE_FACTOR / np.maximum(d, 1e-9), 0, 80)
+        cv2.imwrite(os.path.join(save_dir, f"{idx:010d}.png"),
+                    np.uint16(depth * 256))
+    return save_dir
+
+
 def _kitti_eval_dataset(cfg: Config):
     from fusiondepth_torch.data.kitti_dataset import (
         KITTIDepthDataset,
@@ -166,13 +249,10 @@ def _kitti_eval_dataset(cfg: Config):
 
 
 def evaluate(cfg: Config, dataset=None, device=None):
-    unported = [f for f in ("visualize", "per_semantic") if getattr(cfg, f)]
-    if cfg.eval_split == "benchmark":
-        unported.append("eval_split=benchmark")
-    if unported:
-        raise NotImplementedError(
-            f"{', '.join(unported)}: not ported to fusiondepth_torch yet; "
-            "use the JAX package's evaluate_depth.py")
+    """The evaluation of `evaluate_depth.py` over `dataset` (default: the
+    split's test_files.txt under splits/; splits/benchmark/ is the user's
+    own, as in the JAX package). Returns the metrics, or None with no_eval
+    or eval_split="benchmark"."""
     if dataset is None:
         dataset = _kitti_eval_dataset(cfg)
 
@@ -194,6 +274,19 @@ def evaluate(cfg: Config, dataset=None, device=None):
     if cfg.no_eval:
         print("-> Evaluation disabled. Done.")
         return None
+
+    if cfg.eval_split == "benchmark":
+        save_dir = save_benchmark_predictions(cfg, disps)
+        print(f"-> Saved benchmark predictions to {save_dir}; "
+              "no ground truth available, not evaluating.")
+        return None
+
+    if cfg.visualize:
+        save_visualizations(cfg, disps,
+                            os.path.join(cfg.log_dir, "visualization"))
+
+    if cfg.per_semantic:
+        evaluate_per_semantic(cfg, disps, gts)
 
     if cfg.eval_gdc:
         disps = gdc_on_disparities(cfg, dataset, disps, device=device)

@@ -33,7 +33,8 @@ from fusiondepth_torch.training.infer_driver import device_batch, \
     resolve_device
 from fusiondepth_torch.training.refiner import REFINE_KEYS, RefinerNets, \
     refine_loss
-from fusiondepth_torch.training.train_state import check_train_supported
+from fusiondepth_torch.training.train_state import check_stage1_default, \
+    check_train_supported
 from fusiondepth_torch.utils.logging import MetricLogger, sec_to_hm_str
 
 # what the refined inference reads; every one is an NHWC image
@@ -53,6 +54,7 @@ class Refiner:
         # the reference forces these on (refiner.py:29-30)
         cfg = cfg.replace(clone_gdc=True, refine_2d=True)
         check_train_supported(cfg)
+        check_stage1_default(cfg, "the refiner")
         self.cfg = cfg
         self.device = resolve_device(device)
         if self.device.type == "cuda":

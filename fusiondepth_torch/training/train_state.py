@@ -9,7 +9,8 @@ leading axis; gradients are averaged and the BN statistics carry from one
 microbatch to the next, as the JAX package's lax.scan carries them.
 
 Not ported yet: `remat` (recomputing through torch.utils.checkpoint would
-update the BN running statistics twice).
+update the BN running statistics twice) and bfloat16 compute
+(`models/fusion.py::model_dtype`).
 """
 
 from __future__ import annotations
@@ -19,27 +20,38 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import torch
 
 from fusiondepth_torch.config import Config
-from fusiondepth_torch.models.fusion import FusionNets
+from fusiondepth_torch.models.fusion import FusionNets, model_dtype
 from fusiondepth_torch.training.photometric import (
-    check_supported,
     compute_losses,
     generate_images_pred,
 )
 
 
 def check_train_supported(cfg: Config) -> None:
-    """Raise NotImplementedError for train options the port lacks."""
-    check_supported(cfg)
+    """Raise NotImplementedError for train options the port lacks: remat
+    and bfloat16."""
+    model_dtype(cfg)
     if cfg.remat:
         raise NotImplementedError(
             "remat: not ported to fusiondepth_torch yet (recomputing the "
             "forward would update the BN running statistics twice)")
-    if not cfg.use_pose_net or cfg.pose_model_type != "separate_resnet" \
-            or cfg.num_pose_frames != 2:
+
+
+def check_stage1_default(cfg: Config, where: str) -> None:
+    """Raise NotImplementedError for the stage-1 training variants that
+    `where` (the refiner, the completor) has not been held with against
+    the JAX package: v1_multiscale, use_stereo, predictive_mask, and pose
+    nets other than separate_resnet over frame pairs."""
+    on = [f for f in ("v1_multiscale", "use_stereo", "predictive_mask")
+          if getattr(cfg, f)]
+    if cfg.pose_model_type != "separate_resnet":
+        on.append(f"pose_model_type={cfg.pose_model_type!r}")
+    if cfg.pose_model_input != "pairs":
+        on.append(f"pose_model_input={cfg.pose_model_input!r}")
+    if on:
         raise NotImplementedError(
-            f"pose_model_type={cfg.pose_model_type!r}, pose_model_input="
-            f"{cfg.pose_model_input!r}: the port trains the separate_resnet "
-            "pose net over frame pairs only")
+            f"{where} with {', '.join(on)}: not ported to fusiondepth_torch "
+            "yet")
 
 
 def make_optimizer(cfg: Config, nets: torch.nn.Module,

@@ -14,7 +14,10 @@ the tests) in the config's dtype, float32 by default with TF32 off, so
 that float32 means float32 in cuDNN's convolutions too. The host feed
 runs ahead of the step in a thread (data/prefetch.py) with pinned,
 non-blocking uploads; losses are read back only every log_frequency steps.
-Data parallelism (use_mesh, several processes) is not ported yet.
+Every stage-1 training variant of the JAX package trains here
+(v1_multiscale, use_stereo, predictive_mask, the posecnn and shared pose
+types, pose_model_input="all"); data parallelism (use_mesh, several
+processes), remat and bfloat16 are not ported yet.
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ from fusiondepth_torch.training.train_state import (
 from fusiondepth_torch.utils.logging import MetricLogger, sec_to_hm_str
 
 TRAIN_KEYS = ("color", "color_aug", "two_channel", "four_beam", "K",
-              "inv_K")
+              "inv_K", "stereo_T")
 
 
 class Trainer:
@@ -57,6 +60,10 @@ class Trainer:
                 "use_mesh / multi-process training: the port trains on one "
                 "card; data parallelism is not ported yet")
         cfg = cfg.replace(num_epochs=max((8 * 17) // cfg.batch_size, 1))
+        if cfg.use_stereo and "s" not in cfg.frame_ids:
+            # stereo adds the opposite-side frame (reference
+            # trainer.py:63-64)
+            cfg = cfg.replace(frame_ids=tuple(cfg.frame_ids) + ("s",))
         if cfg.height % 32 or cfg.width % 32:
             raise ValueError("height/width must be multiples of 32")
         check_train_supported(cfg)

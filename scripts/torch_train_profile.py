@@ -1,12 +1,16 @@
 """Where the time of one port train step goes, on one NVIDIA GPU.
 
     python3 scripts/torch_train_profile.py [--config 3] [--batch N]
-        [--steps 3] [--out log/train_profile.json]
+        [--steps 3] [--set KEY=VALUE ...] [--out log/train_profile.json]
 
 Builds the port's trainer for BASELINE config 3 (ResNet-18, 640x192,
 batch 12) or, with --config 5, its completor (ResNet-50 depth and beam
 encoders, ResNet-18 pose encoders, 1216x352, batch 4), fp32, TF32 off,
-random weights from a seed, runs two warm-up steps, then
+random weights from a seed, with the Config fields given by `--set`
+(e.g. `--set v1_multiscale=true --set use_stereo=true --set
+pose_model_type=posecnn`: a training variant; the value parsed as JSON
+when it can be; use_stereo adds the frame "s" as the Trainer does), runs
+two warm-up steps, then
 `--steps` steps under torch.profiler, and prints one JSON line: the card,
 the wall ms per step (host clock around a synchronized step, without the
 profiler), the device-busy ms per step (union of kernel intervals), and
@@ -31,6 +35,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 import torch  # noqa: E402
 
+from fusiondepth_torch.bench import parse_set  # noqa: E402
 from fusiondepth_torch.config import Config  # noqa: E402
 from fusiondepth_torch.data.loader import collate  # noqa: E402
 from fusiondepth_torch.data.synthetic import SyntheticDataset  # noqa: E402
@@ -94,6 +99,8 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=None,
                     help="default 12 (config 3) or 4 (config 5)")
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--set", action="append", default=[],
+                    metavar="KEY=VALUE", help="override a Config field")
     ap.add_argument("--out", default="log/train_profile.json")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -107,18 +114,23 @@ def main() -> int:
                           text=True, check=True).stdout.strip()
     if args.batch is None:
         args.batch = 12 if args.config == 3 else 4
+    overrides = parse_set(args.set)
     with tempfile.TemporaryDirectory() as tmp:
         if args.config == 3:
-            cfg = Config(num_layers=18, height=192, width=640,
-                         batch_size=args.batch, weights_init="scratch",
-                         log_dir=tmp)
+            cfg = Config(**{**dict(num_layers=18, height=192, width=640,
+                                   weights_init="scratch"), **overrides,
+                            "batch_size": args.batch, "log_dir": tmp})
+            if cfg.use_stereo and "s" not in cfg.frame_ids:
+                # the frames the Trainer trains on, which the data carry
+                cfg = cfg.replace(frame_ids=tuple(cfg.frame_ids) + ("s",))
             data = SyntheticDataset(cfg, length=args.batch, seed=0)
             driver = Trainer(cfg, train_dataset=data, device=dev)
         else:
-            cfg = Config(num_layers=50, completion_num_layers=50,
-                         completion_pose_num_layers=18, height=352,
-                         width=1216, batch_size=args.batch,
-                         weights_init="scratch", log_dir=tmp)
+            cfg = Config(**{**dict(num_layers=50, completion_num_layers=50,
+                                   completion_pose_num_layers=18,
+                                   height=352, width=1216,
+                                   weights_init="scratch"), **overrides,
+                            "batch_size": args.batch, "log_dir": tmp})
             data = SyntheticDataset(cfg, length=args.batch, seed=0)
             driver = Completor(cfg, train_dataset=data, device=dev)
         batch = driver.put_batch(collate([data[i]
@@ -156,6 +168,7 @@ def main() -> int:
                   indent=1)
     print(json.dumps({
         "card": card, "config": args.config, "batch": args.batch,
+        "set": overrides,
         "steps": args.steps,
         "wall_ms_per_step": wall,
         "device_busy_ms_per_step": busy_ms(dev_events) / args.steps,

@@ -20,7 +20,8 @@ package, on the CPU:
   `Completor` and the other completion CLIs need.
 
 The JAX side of the loss is one jitted function (both terms, one traced
-forward), computed once per module.
+forward), computed once per module. The JAX sides run the JAX package's
+generic path (its TPU layout flags off, test_torch_port_models.GENERIC).
 """
 
 import os
@@ -61,7 +62,7 @@ from fusiondepth_torch.training.infer_driver import device_batch
 from fusiondepth_torch.training.trainer import TRAIN_KEYS
 
 from test_torch_port_models import few_torch_threads  # noqa: F401
-from test_torch_port_models import jit, random_variables
+from test_torch_port_models import GENERIC, jit, random_variables
 from test_torch_port_train import assert_trees_close, make_inputs
 
 B, H, W = 2, 64, 96
@@ -155,7 +156,7 @@ def test_pose_depth_forward_matches_jax_f64():
     kw = dict(KW, num_layers=50, batch_size=1)
     batch = {k: v[:1] for k, v in make_inputs().items()}
     with jax.enable_x64():
-        cfg = JaxConfig(**kw, pallas_warp=False)
+        cfg = JaxConfig(**kw, pallas_warp=False, **GENERIC)
         nets = JaxFusionNets(cfg, pose_depth=18)
         v = random_variables(lambda: nets.init(jax.random.PRNGKey(0),
                                                batch_size=1),
@@ -201,7 +202,7 @@ def jax_loss():
     gives each its gradients."""
     batch = make_inputs()
     with jax.enable_x64():
-        cfg = JaxConfig(**KW, pallas_warp=False)
+        cfg = JaxConfig(**KW, pallas_warp=False, **GENERIC)
         nets = JaxFusionNets(cfg, pose_depth=cfg.completion_pose_num_layers)
         v = random_variables(lambda: nets.init(jax.random.PRNGKey(0),
                                                batch_size=B),

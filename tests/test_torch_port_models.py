@@ -72,6 +72,17 @@ def random_variables(init, rng, dtype=np.float32):
 FAST_COMPILE = {"xla_backend_optimization_level": 1}
 
 
+# The JAX package's generic math: its TPU layout flags off. Each flag
+# re-lays the same math out for the TPU and is pinned exact against the
+# generic path by the JAX package's own suite (config.py:189-235); this
+# file holds the port's modules against the flags on. The float64 step
+# fixtures of the other port test files trace and compile the generic
+# path, a third faster: a default-config step fixture took 27.3 s against
+# 39.9 s with the flags on, in one CPU process.
+GENERIC = dict(fold64_encoder=False, fold_stem=False, folded_seam=False,
+               folded_decoder=False)
+
+
 def jit(fn, **kwargs):
     """jax.jit with the FAST_COMPILE options."""
     return jax.jit(fn, compiler_options=FAST_COMPILE, **kwargs)

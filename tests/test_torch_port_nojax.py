@@ -2,7 +2,9 @@
 fusiondepth_torch (stage 2 included: gdc, the KNN and reprojection
 kernels, the refiner and its drivers, completion and the bench), its
 CLIs (the trainer, inference, evaluation, inf_gdc, refiner, completor,
-evaluate_completion, gen2cha_completion, export_detection and bench) and
+evaluate_completion, gen2cha_completion, export_detection, bench and the
+host data-prep CLIs sparsify, gen2channel, gen2channel_detec and
+export_gt_depth), the pose nets, ops/sampling.py and ops/losses.py, and
 chip_smoke.py loads no module of
 jax, jaxlib, flax or the JAX package (fusiondepth_tpu). Checked in a
 fresh interpreter, since this test process has imported JAX already
@@ -39,6 +41,13 @@ import fusiondepth_torch.completor
 import fusiondepth_torch.evaluate_completion
 import fusiondepth_torch.gen2cha_completion
 import fusiondepth_torch.export_detection
+import fusiondepth_torch.sparsify
+import fusiondepth_torch.gen2channel
+import fusiondepth_torch.gen2channel_detec
+import fusiondepth_torch.export_gt_depth
+import fusiondepth_torch.models.pose
+import fusiondepth_torch.ops.sampling
+import fusiondepth_torch.ops.losses
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax",

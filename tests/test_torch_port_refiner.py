@@ -7,8 +7,9 @@ road + catxy + deep refine2d decoder at B=2, 64x96, the reference
 refiner's defaults (refine_iter 1, refine_a0, GDC loss on scale 0 only),
 in float64 on both sides with the same weights (carried by
 models/jax_weights) and the same automask noise (the JAX draws replayed).
-The JAX side is one jitted function per module: make_refine_loss_fn under
-jax.value_and_grad, with its pseudo-3D maps and refined disparities read
+The JAX side is one jitted function per module, on the JAX package's
+generic path (its TPU layout flags off, test_torch_port_models.GENERIC):
+make_refine_loss_fn under jax.value_and_grad, with its pseudo-3D maps and refined disparities read
 out of that trace, and one optax.adam step from those gradients.
 
 Tolerances: the pseudo-3D maps and refined disparities to 1e-9; the loss
@@ -57,7 +58,7 @@ from fusiondepth_torch.training.refiner import (
 from fusiondepth_torch.training.refiner_driver import INFER_KEYS, Refiner
 
 from test_torch_port_models import few_torch_threads  # noqa: F401
-from test_torch_port_models import jit, load_into, nchw, \
+from test_torch_port_models import GENERIC, jit, load_into, nchw, \
     random_variables
 from test_torch_port_train import assert_trees_close
 
@@ -156,7 +157,7 @@ def make_inputs():
 def jax_side():
     batch = make_inputs()
     with jax.enable_x64():
-        cfg = JaxConfig(**KW, pallas_warp=False)
+        cfg = JaxConfig(**KW, pallas_warp=False, **GENERIC)
         nets = JaxRefinerNets(cfg)
         rng = np.random.default_rng(0)
         frozen = random_variables(

@@ -23,7 +23,9 @@ Held against the JAX side:
   leaf is near 0 its 1e-9 agreement allows up to 2.5e-6 of difference in
   the step (1.2e-7 is measured here); the BN statistics to 1e-9.
 
-The JAX side is one jitted function, computed once per module.
+The JAX side is one jitted function, computed once per module, on the
+JAX package's generic path (its TPU layout flags off,
+test_torch_port_models.GENERIC).
 """
 
 import copy
@@ -63,7 +65,7 @@ from fusiondepth_torch.training.train_state import (
 from fusiondepth_torch.training.trainer import TRAIN_KEYS, Trainer
 
 from test_torch_port_models import few_torch_threads  # noqa: F401
-from test_torch_port_models import jit, random_variables
+from test_torch_port_models import GENERIC, jit, random_variables
 
 B, H, W = 2, 64, 96
 KW = dict(num_layers=18, height=H, width=W, batch_size=B,
@@ -100,7 +102,7 @@ def make_inputs():
 def jax_side():
     batch = make_inputs()
     with jax.enable_x64():
-        cfg = JaxConfig(**KW, pallas_warp=False)
+        cfg = JaxConfig(**KW, pallas_warp=False, **GENERIC)
         nets = JaxFusionNets(cfg)
         v = random_variables(lambda: nets.init(jax.random.PRNGKey(0),
                                                batch_size=B),
@@ -285,15 +287,54 @@ def test_trainer_steps_checkpoint_and_infer_round_trip(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    dict(compute_dtype="bfloat16"), dict(v1_multiscale=True),
-    dict(remat=True),
-    dict(use_mesh=True), dict(predictive_mask=True,
-                              disable_automasking=True),
-    dict(use_stereo=True), dict(pose_model_type="posecnn")])
+    dict(compute_dtype="bfloat16"), dict(remat=True), dict(use_mesh=True)])
 def test_unported_options_raise(flag, tmp_path):
     cfg = Config(num_layers=18, height=64, width=96, batch_size=2,
                  weights_init="scratch", log_dir=str(tmp_path), **flag)
     with pytest.raises(NotImplementedError):
+        Trainer(cfg, train_dataset=SyntheticDataset(cfg, length=2),
+                device="cpu")
+
+
+@pytest.mark.parametrize("flag", [
+    dict(v1_multiscale=True),
+    dict(use_stereo=True),
+    dict(predictive_mask=True, disable_automasking=True),
+    dict(pose_model_type="posecnn"),
+    dict(pose_model_type="shared"),
+    dict(pose_model_input="all")])
+def test_trainer_steps_with_each_training_variant(flag, tmp_path):
+    """One Trainer step on the CPU with each stage-1 training variant
+    (each is held against the JAX package in
+    tests/test_torch_port_variants.py), without the beam encoders to keep
+    it cheap: a finite loss, and the pose net and the depth decoder moved.
+    use_stereo adds the frame "s", whose samples carry stereo_T (the
+    dataset is made with it)."""
+    cfg = Config(num_layers=18, height=64, width=96, batch_size=2,
+                 weights_init="scratch", log_dir=str(tmp_path),
+                 num_workers=1, log_frequency=1, beam_encoder=False, **flag)
+    data_cfg = cfg.replace(frame_ids=(0, -1, 1, "s")) if cfg.use_stereo \
+        else cfg
+    trainer = Trainer(cfg, train_dataset=SyntheticDataset(data_cfg,
+                                                          length=2),
+                      device="cpu")
+    assert trainer.cfg.frame_ids == data_cfg.frame_ids
+    before = {k: v.clone() for k, v in trainer.nets.state_dict().items()}
+    losses = trainer.run_epoch()
+    assert len(losses) == 1 and np.isfinite(float(losses[0]))
+    moved = {k.split(".")[0] for k, v in trainer.nets.state_dict().items()
+             if not torch.equal(v, before[k])}
+    assert {"pose", "depth", "encoder"} <= moved
+
+
+def test_all_pose_inputs_with_the_stereo_frame_raise(tmp_path):
+    """pose_model_input="all" with use_stereo: the stereo frame would count
+    as a pose input at init and never reach the pose nets, which the JAX
+    package cannot init either."""
+    cfg = Config(num_layers=18, height=64, width=96, batch_size=2,
+                 weights_init="scratch", log_dir=str(tmp_path),
+                 use_stereo=True, pose_model_input="all")
+    with pytest.raises(ValueError, match="'all'"):
         Trainer(cfg, train_dataset=SyntheticDataset(cfg, length=2),
                 device="cpu")
 
