@@ -56,7 +56,17 @@ order, it:
    batch 4) requiring every kernel of the step, times the warp calls of
    the batch-4 step (`timing_call` lines), saves and reloads the refine
    checkpoint, and runs evaluate with refine_2d and with refine_2d and
-   eval_gdc over the drive's frames;
+   eval_gdc over the drive's frames; then the refiner with
+   train_entire_net (the stage-1 nets train with the refine decoder, their
+   BatchNorm in eval mode, so every training kernel runs): the kernels on
+   the calls of a batch-4 step (the backward ones also with unit-scale
+   cotangents), a whole batch-2 step against all-plain and float64 with
+   every stage-1 leaf, Refiner.run_epoch (3 steps at batch 4) with every
+   training kernel launched and the stage-1 BN statistics unchanged, each
+   kernel's calls of the batch-4 step and the step timed; then one refine
+   step with the stage-1 variants of REFINE_VARIANT (posecnn + use_stereo
+   + predictive_mask), its kernel calls held and every refine kernel
+   launched;
 8. completion (BASELINE config 5: ResNet-50 depth and beam encoders,
    ResNet-18 pose encoders, 352 x 1216, batch 4, fp32): holds every
    stage-1 kernel on the calls of a batch-4 completion step at the
@@ -70,6 +80,14 @@ order, it:
    best_completion checkpoint saved, then reloaded into a new Completor
    that must predict the same depths), and times each kernel's calls of
    the batch-4 step and the step through the kernels against all-plain;
+   then remat: a batch-4 step with remat against one without from the same
+   weights and noise (the loss within 1e-5, each gradient leaf within
+   1e-3 relative L2, the BN statistics after it equal),
+   Completor.run_step with remat over 3 steps with every kernel launched,
+   and the peak memory and time of a step with and without remat; then one
+   batch-2 completion step with the stage-1 variants of COMPLETION_VARIANT
+   (v1_multiscale + predictive_mask + pose_model_input="all"), its kernel
+   calls held and every kernel launched;
 9. the stage-1 training variants (ResNet-18, 640x192, fp32, `VARIANTS`):
    A (v1_multiscale + use_stereo + posecnn, automask on) and B (shared
    + use_stereo + predictive_mask + disable_automasking) each hold every
@@ -96,7 +114,9 @@ order, it:
    the path that drives it and its bound (the conv rows at the 3xTF32
    rate, see PEAK_TF32_S, with their achieved TFLOP/s), and for the ten
    of the completion step a "completion" entry with that path's launches,
-   times and bound, and for the ten training kernels a "variants" entry
+   times and bound, a "refine_entire" entry with the train_entire_net
+   step's, a "completion_remat" entry with the remat run's launches, and
+   for the ten training kernels a "variants" entry
    (A and B: launches, times and bound; C: launches), then, last,
    {"ok": true, "device": {...}}. After the build it prints what ptxas
    reported for the conv kernels, the pool backward, the warp forward and
@@ -219,6 +239,17 @@ TRAIN_KERNELS = FORWARD_KERNELS + ("maxpool3x3s2_bwd", "conv3x3_dgrad",
 # backward (stage 1 is frozen)
 REFINE_KERNELS = FORWARD_KERNELS + ("conv3x3_dgrad", "conv3x3_wgrad", "warp",
                                     "warp_bwd", "reproj", "reproj_bwd")
+# the refiner with train_entire_net: stage 1 takes gradients, so the step
+# runs every training kernel (the pool backward and the stage-1 dgrad and
+# wgrad calls are new there)
+REFINE_ENTIRE_KERNELS = TRAIN_KERNELS
+# the stage-1 variant combinations the completor and the refiner are
+# driven with at full width (each is one the JAX driver traces)
+COMPLETION_VARIANT = dict(v1_multiscale=True, predictive_mask=True,
+                          disable_automasking=True, pose_model_input="all")
+REFINE_VARIANT = dict(pose_model_type="posecnn", use_stereo=True,
+                      frame_ids=(0, -1, 1, "s"), predictive_mask=True,
+                      disable_automasking=True)
 # the kernel line's launches: the path each kernel is driven by
 KERNEL_PATH = {**{k: "train" for k in TRAIN_KERNELS}, "knn": "inf_gdc"}
 REPROJ_ATOL = 1e-5
@@ -1214,12 +1245,34 @@ class RefineFrames(SmokeFrames):
 
 
 def refine_grads(cfg, nets, batch, noise):
-    """(loss, {refine2d param: grad}) of one refine step, no update."""
+    """(loss, {param: grad}) of one refine step, no update: the refine
+    decoder's leaves, and with train_entire_net the stage-1 leaves the
+    loss reads."""
     nets.zero_grad(set_to_none=True)
     loss, _ = refine_loss(cfg, nets, batch, noise=noise)
     loss.backward()
     return loss.item(), {n: p.grad.detach().clone()
-                         for n, p in nets.refine2d.named_parameters()}
+                         for n, p in nets.named_parameters()
+                         if p.grad is not None}
+
+
+def hold_refine_step(check, cfg, nets, small, noise, kernels):
+    """`hold_step` on a whole batch-2 refine step: the loss and every
+    gradient leaf (the stage-1 ones too under train_entire_net) through
+    the kernels against all-plain and an all-plain float64 step of the
+    same weights."""
+    def grads64():
+        ref = copy.deepcopy(nets).double()
+        scales = {}
+        with summand_scales(ref, scales):
+            loss, grads = refine_grads(
+                cfg, ref, {k: v.double() for k, v in small.items()},
+                [[n.double() for n in noise[0]]])
+        return loss, grads, scales
+
+    hold_step(check, lambda b, n: refine_grads(cfg, nets, b, n), small,
+              noise, grads64, kernels)
+    nets.zero_grad(set_to_none=True)
 
 
 def refine_phase(dev, tmp, weights, tree_frames):
@@ -1254,18 +1307,8 @@ def refine_phase(dev, tmp, weights, tree_frames):
 
     # a whole batch-2 step through the kernels against all-plain, both
     # held against an all-plain float64 step of the same weights
-    def grads64():
-        ref = copy.deepcopy(nets).double()
-        scales = {}
-        with summand_scales(ref.refine2d, scales):
-            loss, grads = refine_grads(
-                cfg, ref, {k: v.double() for k, v in small.items()},
-                [[n.double() for n in noise[0]]])
-        return loss, grads, scales
-
-    hold_step("refine_step_vs_all_plain",
-              lambda b, n: refine_grads(cfg, nets, b, n), small, noise,
-              grads64, REFINE_KERNELS)
+    hold_refine_step("refine_step_vs_all_plain", cfg, nets, small, noise,
+                     REFINE_KERNELS)
 
     # the entry point: 3 steps at batch 4 through the kernels
     torch.cuda.synchronize()
@@ -1322,6 +1365,122 @@ def refine_phase(dev, tmp, weights, tree_frames):
     emit(timing="refine_step", batch=REFINE_BATCH, ms=step_ms,
          plain_ms=plain_ms, samples_per_s=REFINE_BATCH / step_ms * 1e3,
          plain_samples_per_s=REFINE_BATCH / plain_ms * 1e3)
+    return err, launches
+
+
+def refine_entire_phase(dev, tmp, weights):
+    """The refiner with train_entire_net (BASELINE config 4: ResNet-18,
+    640x192, batch 4): the stage-1 nets train with the refine decoder,
+    their BatchNorm in eval mode, so the refine step runs every training
+    kernel. Every kernel on the calls of a batch-4 step (the backward ones
+    also with unit-scale cotangents), a whole batch-2 step against
+    all-plain and float64, every gradient leaf (the stage-1 ones too);
+    Refiner.run_epoch over 12 frames (3 steps at batch 4) with the counts
+    set to 0 before and read after, the stage-1 BN running statistics
+    unchanged by it; each kernel's calls of the batch-4 step and the step
+    timed against all-plain."""
+    t0 = time.perf_counter()
+    cfg = Config(num_layers=18, height=HEIGHT, width=WIDTH,
+                 batch_size=REFINE_BATCH, weights_init="scratch",
+                 log_dir=tmp, num_workers=4, log_frequency=1,
+                 model_name="smoke_entire", refine_load_weights_folder=weights,
+                 train_entire_net=True)
+    data = RefineFrames(cfg, REFINE_FRAMES)
+    refiner = Refiner(cfg, train_dataset=data, device=dev)
+    nets = refiner.nets
+    small = refiner.put_batch(collate([data[i] for i in range(CHECK_BATCH)]))
+    big = refiner.put_batch(collate([data[i] for i in range(REFINE_BATCH)]))
+
+    calls = []
+    with all_plain(record=calls):
+        refine_loss(cfg, nets, big)[0].backward()
+    nets.zero_grad(set_to_none=True)
+    err = check_step_calls(calls, dev, "refine_entire_batch4")
+    require(set(err) == set(REFINE_ENTIRE_KERNELS),
+            f"the train_entire_net step called {sorted(err)}")
+    hold_refine_step("refine_entire_step_vs_all_plain", cfg, nets, small,
+                     [step_noise(cfg, CHECK_BATCH, dev)],
+                     REFINE_ENTIRE_KERNELS)
+
+    stats = {n: b.clone() for n, b in nets.stage1.named_buffers()}
+    s1 = {n: p.detach().clone() for n, p in nets.stage1.named_parameters()}
+    torch.cuda.synchronize()
+    reset_launches()
+    t = time.perf_counter()
+    losses = [float(x) for x in refiner.run_epoch()]
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    moved = sum(not torch.equal(p, s1[n])
+                for n, p in nets.stage1.named_parameters())
+    still = all(torch.equal(b, stats[n])
+                for n, b in nets.stage1.named_buffers())
+    emit(phase="refiner_entire_run_epoch", steps=len(losses),
+         batch=REFINE_BATCH, seconds=time.perf_counter() - t, losses=losses,
+         launches=launches, stage1_leaves_moved=moved,
+         stage1_leaves=len(s1), bn_stats_unchanged=still)
+    require(len(losses) == REFINE_FRAMES // REFINE_BATCH,
+            f"{len(losses)} train_entire_net steps")
+    require(all(np.isfinite(losses)), f"non-finite losses {losses}")
+    require(moved > 0, "train_entire_net moved no stage-1 parameter")
+    require(still, "train_entire_net moved the stage-1 BN statistics")
+    for name in REFINE_ENTIRE_KERNELS:
+        require(launches[name] > 0, f"train_entire_net: kernel {name} was "
+                "never launched")
+
+    ktimes = time_kernels(calls, "refine_entire_batch4", iters=5)
+    del calls
+
+    def plain_step():
+        with all_plain():
+            refiner.run_step(big, on_device=True)
+
+    step_ms, plain_ms = paired_ms(
+        lambda: refiner.run_step(big, on_device=True), plain_step, iters=3,
+        warmup=1)
+    emit(timing="refine_entire_step", batch=REFINE_BATCH, ms=step_ms,
+         plain_ms=plain_ms, samples_per_s=REFINE_BATCH / step_ms * 1e3,
+         plain_samples_per_s=REFINE_BATCH / plain_ms * 1e3,
+         kernels_ms=sum(r["ms"] for r in ktimes.values()),
+         seconds=time.perf_counter() - t0)
+    return err, launches, ktimes
+
+
+def refine_variant_step(dev, tmp):
+    """One refine step at batch 4 (ResNet-18, 640x192) with the stage-1
+    variants `REFINE_VARIANT` on seeded weights: every kernel on its
+    calls (the backward ones also with unit-scale cotangents), then one
+    Refiner.run_step through the kernels with every refine kernel
+    launched."""
+    t0 = time.perf_counter()
+    cfg = Config(num_layers=18, height=HEIGHT, width=WIDTH,
+                 batch_size=REFINE_BATCH, weights_init="scratch",
+                 log_dir=tmp, model_name="smoke_refine_variant",
+                 **REFINE_VARIANT)
+    refiner = Refiner(cfg, device=dev)
+    refiner.nets.stage1.load_state_dict(seeded_weights(cfg).state_dict())
+    data = RefineFrames(cfg, REFINE_BATCH)
+    big = refiner.put_batch(collate([data[i] for i in range(REFINE_BATCH)]))
+    require(big["color"].shape[1] == 4 and "stereo_T" in big,
+            "the refine variant batch lacks the stereo frame")
+    calls = []
+    with all_plain(record=calls):
+        refine_loss(refiner.cfg, refiner.nets, big)[0].backward()
+    refiner.nets.zero_grad(set_to_none=True)
+    err = check_step_calls(calls, dev, "refine_variant_batch4")
+    require(set(err) == set(REFINE_KERNELS),
+            f"the refine variant step called {sorted(err)}")
+    del calls
+    torch.cuda.synchronize()
+    reset_launches()
+    loss = float(refiner.run_step(big, on_device=True)["loss"])
+    launches = dict(LAUNCHES)
+    emit(phase="refiner_variant_run_step", flags=REFINE_VARIANT,
+         batch=REFINE_BATCH, loss=loss, launches=launches,
+         seconds=time.perf_counter() - t0)
+    require(np.isfinite(loss), f"refine variant loss {loss}")
+    for name in REFINE_KERNELS:
+        require(launches[name] > 0, f"refine variant: kernel {name} was "
+                "never launched")
     return err, launches
 
 
@@ -1491,7 +1650,156 @@ def completion_phase(dev, tmp):
          plain_samples_per_s=COMPLETION_BATCH / plain_ms * 1e3,
          kernels_ms=sum(r["ms"] for r in ktimes.values()),
          peak_memory_gib=peak_gib, card=card_line())
-    return err, launches, ktimes
+    launches_remat = completion_remat(comp, data, big, dev)
+    return err, launches, ktimes, launches_remat
+
+
+def completion_remat(comp, data, big, dev):
+    """remat on the completion step (BASELINE config 5, batch 4): one step
+    of the loss with remat against one without, from the same weights and
+    noise, through the kernels: the loss equal within STEP_LOSS_REL, each
+    gradient leaf's relative L2 distance within STEP_GRAD_REL, the BN
+    running statistics after the step equal. Then Completor.run_step with
+    remat over 12 frames (3 steps at batch 4) with the counts set to 0
+    before and read after (every kernel must have run), and the peak
+    memory and time of one Completor.run_step with and without remat.
+    Also prints the memory held between the loss and its backward with and
+    without remat, and how far a second step without remat moves the
+    gradient leaves (the card's own run-to-run spread). Restores the
+    Completor's config and weights."""
+    t0 = time.perf_counter()
+    nets, base = comp.nets, comp.cfg
+    weights = copy.deepcopy(nets.state_dict())
+    noise = step_noise(base, COMPLETION_BATCH, dev)
+
+    def one_step(remat):
+        """(loss, grads, BN buffers, GiB held between the loss and its
+        backward) of one step from `weights`."""
+        nets.load_state_dict(weights)
+        nets.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        loss, _ = completion_loss(base.replace(remat=remat), nets, big,
+                                  noise=noise)
+        held = torch.cuda.memory_allocated() / 2**30
+        loss.backward()
+        return (loss.item(), {n: p.grad.detach().clone()
+                              for n, p in nets.named_parameters()},
+                {n: b.clone() for n, b in nets.named_buffers()}, held)
+
+    def rel_l2(ga, gb):
+        return {n: ((ga[n] - gb[n]).norm() / gb[n].norm().clamp_min(1e-30))
+                .item() for n in gb}
+
+    # two steps without remat: how far the card's own summation order
+    # (cuDNN's backward) moves a leaf from one run to the next
+    l0, g0, b0, held0 = one_step(False)
+    floor = max(rel_l2(one_step(False)[1], g0).values())
+    l1, g1, b1, held1 = one_step(True)
+    require(g0.keys() == g1.keys(), "remat changed the gradient leaves")
+    dist = rel_l2(g1, g0)
+    worst = max(dist, key=dist.get)
+    loss_rel = abs(l1 - l0) / abs(l0)
+    stats_equal = all(torch.equal(b1[n], b) for n, b in b0.items())
+    emit(check="completion_remat_vs_no_remat", batch=COMPLETION_BATCH,
+         loss=l1, loss_rel_diff=loss_rel, leaves=len(dist),
+         worst_grad_rel_l2=dist[worst], worst_leaf=worst,
+         no_remat_rerun_worst_grad_rel_l2=floor,
+         bit_equal_leaves=sum(torch.equal(g1[n], g0[n]) for n in g0),
+         bn_stats_equal=stats_equal, held_after_loss_gib=held1,
+         held_after_loss_gib_no_remat=held0,
+         tol=[STEP_LOSS_REL, STEP_GRAD_REL])
+    require(loss_rel <= STEP_LOSS_REL, f"remat loss differs by {loss_rel}")
+    require(dist[worst] <= STEP_GRAD_REL,
+            f"remat gradient {worst} differs by {dist[worst]}")
+    require(stats_equal, "remat moved the BN statistics otherwise")
+    del g0, g1
+    nets.zero_grad(set_to_none=True)
+
+    # the entry point with remat: 3 steps at batch 4
+    nets.load_state_dict(weights)
+    comp.cfg = base.replace(remat=True)
+    loader = DataLoader(data, COMPLETION_BATCH, shuffle=True, drop_last=True,
+                        num_workers=base.num_workers)
+    torch.cuda.synchronize()
+    reset_launches()
+    losses = [float(comp.run_step(db, on_device=True)["loss"])
+              for db in prefetch_to_device(loader, comp.put_batch, size=2)]
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    require(len(losses) == COMPLETION_FRAMES // COMPLETION_BATCH
+            and all(np.isfinite(losses)), f"remat losses {losses}")
+    for name in COMPLETION_KERNELS:
+        require(launches[name] > 0, f"completion remat: kernel {name} was "
+                "never launched")
+
+    peak, ms = {}, {}
+    for remat in (False, True):
+        comp.cfg = base.replace(remat=remat)
+        nets.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        comp.run_step(big, on_device=True)
+        torch.cuda.synchronize()
+        peak[remat] = torch.cuda.max_memory_allocated() / 2**30
+
+    def step(remat):
+        def run():
+            comp.cfg = base.replace(remat=remat)
+            comp.run_step(big, on_device=True)
+        return run
+
+    ms[True], ms[False] = paired_ms(step(True), step(False), iters=3,
+                                    warmup=1)
+    comp.cfg = base
+    nets.load_state_dict(weights)
+    emit(phase="completor_remat_run_step", steps=len(losses),
+         batch=COMPLETION_BATCH, losses=losses, launches=launches,
+         peak_memory_gib=peak[True], peak_memory_gib_no_remat=peak[False],
+         ms=ms[True], ms_no_remat=ms[False],
+         seconds=time.perf_counter() - t0, card=card_line())
+    return launches
+
+
+def completion_variant_step(dev, tmp):
+    """One completion step (BASELINE config 5's widths: ResNet-50 depth
+    and beam encoders, ResNet-18 pose nets, 352 x 1216) with the stage-1
+    variants `COMPLETION_VARIANT` on seeded weights, at batch 2: every
+    kernel on its calls (the backward ones also with unit-scale
+    cotangents), then one Completor.run_step through the kernels with
+    every kernel launched."""
+    t0 = time.perf_counter()
+    H, W = COMPLETION_HW
+    cfg = Config(num_layers=50, completion_num_layers=50,
+                 completion_pose_num_layers=18, height=H, width=W,
+                 batch_size=CHECK_BATCH, weights_init="scratch",
+                 log_dir=tmp, model_name="smoke_completion_variant",
+                 **COMPLETION_VARIANT)
+    comp = Completor(cfg, device=dev)
+    comp.nets.load_state_dict(seeded_weights(comp.cfg,
+                                             pose_depth=18).state_dict())
+    data = SyntheticDataset(comp.cfg, length=CHECK_BATCH, seed=11)
+    batch = comp.put_batch(collate([data[i] for i in range(CHECK_BATCH)]))
+    calls = []
+    with all_plain(record=calls):
+        completion_loss(comp.cfg, comp.nets, batch)[0].backward()
+    comp.nets.zero_grad(set_to_none=True)
+    err = check_step_calls(calls, dev, "completion_variant_batch2")
+    require(set(err) == set(COMPLETION_KERNELS),
+            f"the completion variant step called {sorted(err)}")
+    del calls
+    torch.cuda.synchronize()
+    reset_launches()
+    loss = float(comp.run_step(batch, on_device=True)["loss"])
+    launches = dict(LAUNCHES)
+    emit(phase="completor_variant_run_step", flags=COMPLETION_VARIANT,
+         batch=CHECK_BATCH, loss=loss, launches=launches,
+         seconds=time.perf_counter() - t0)
+    require(np.isfinite(loss), f"completion variant loss {loss}")
+    for name in COMPLETION_KERNELS:
+        require(launches[name] > 0, f"completion variant: kernel {name} "
+                "was never launched")
+    return err, launches
 
 
 def variant_checks(name, cfg, trainer, data, dev):
@@ -1713,9 +2021,21 @@ def main() -> int:
         err, launches["refiner"] = refine_phase(dev, tmp, weights, frames)
         errs.append(err)
         lap("refiner")
-        err, launches["completion"], ctimes = completion_phase(dev, tmp)
+        err, launches["refine_entire"], etimes = refine_entire_phase(
+            dev, tmp, weights)
+        errs.append(err)
+        lap("refine_entire")
+        err, launches["refine_variant"] = refine_variant_step(dev, tmp)
+        errs.append(err)
+        lap("refine_variant")
+        err, launches["completion"], ctimes, launches["completion_remat"] = \
+            completion_phase(dev, tmp)
         errs.append(err)
         lap("completion")
+        err, launches["completion_variant"] = completion_variant_step(dev,
+                                                                      tmp)
+        errs.append(err)
+        lap("completion_variant")
         verrs, vlaunches, vtimes = variants_phase(dev, tmp, weights, frames)
         errs.extend(verrs)
         lap("variants")
@@ -1729,6 +2049,9 @@ def main() -> int:
     for name in COMPLETION_KERNELS:
         emit(timing=name, per="all calls of one completion step",
              card=card, **ctimes[name])
+    for name in REFINE_ENTIRE_KERNELS:
+        emit(timing=name, per="all calls of one train_entire_net refine "
+             "step", card=card, **etimes[name])
     for v, vt in vtimes.items():
         for name in TRAIN_KERNELS:
             emit(timing=name, per=f"all calls of one variant {v} step",
@@ -1756,6 +2079,17 @@ def main() -> int:
                 "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                 "bound_by": c["bound_by"], "library_ms": c["library_ms"],
                 "library_of_ms": c["library_of_ms"], "tflops": c["tflops"]}
+        if name in REFINE_ENTIRE_KERNELS:
+            c = etimes[name]
+            kernels[-1]["refine_entire"] = {
+                "launches": launches["refine_entire"][name],
+                "calls_per_step": c["calls"], "ms": c["ms"],
+                "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+                "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+                "library_of_ms": c["library_of_ms"], "tflops": c["tflops"]}
+        if name in COMPLETION_KERNELS:
+            kernels[-1]["completion_remat"] = {
+                "launches": launches["completion_remat"][name]}
         if name in TRAIN_KERNELS:
             kernels[-1]["variants"] = {v: {"launches": vlaunches[v][name]}
                                        for v in VARIANTS}

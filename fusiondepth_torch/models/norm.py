@@ -7,12 +7,34 @@ Parameters are `weight` (the JAX `scale`) and `bias`; running statistics
 are the buffers `running_mean` and `running_var` (the JAX `mean`/`var`).
 The names are torchvision's, so its checkpoints load as they are.
 `momentum` is in the JAX sense: running = m * running + (1 - m) * batch.
+
+`running_stats_held` suspends that update while training-mode BNs still
+normalise with their batch statistics: the recompute of a checkpointed
+forward (remat, `training/train_state.py::train_forward`) runs under it,
+so the running statistics move once a step, as without remat.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
+
+
+@contextlib.contextmanager
+def running_stats_held(module: nn.Module):
+    """The training-mode BatchNorms of `module` skip their
+    running-statistics update while this is open."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    before = [m.stats_held for m in bns]
+    for m in bns:
+        m.stats_held = True
+    try:
+        yield
+    finally:
+        for m, held in zip(bns, before):
+            m.stats_held = held
 
 
 class BatchNorm(nn.Module):
@@ -25,19 +47,22 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self.stats_held = False  # see running_stats_held
 
     def affine(self, x: torch.Tensor):
         """(A, Bc), each (C,). In training mode the statistics come from x
         (B, C, H, W) and update the running ones; otherwise the running
-        statistics are used and x is not read."""
+        statistics are used and x is not read. Under `running_stats_held`
+        the running statistics are left as they are."""
         if self.training:
             mean = x.mean(dim=(0, 2, 3))
             mean2 = (x * x).mean(dim=(0, 2, 3))
             var = torch.clamp(mean2 - mean * mean, min=0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.mul_(m).add_((1 - m) * mean)
-                self.running_var.mul_(m).add_((1 - m) * var)
+            if not self.stats_held:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.mul_(m).add_((1 - m) * mean)
+                    self.running_var.mul_(m).add_((1 - m) * var)
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps) * self.weight

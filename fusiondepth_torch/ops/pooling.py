@@ -18,9 +18,9 @@ def max_pool_3x3s2(x: torch.Tensor) -> torch.Tensor:
 
 def max_pool2x2_ceil(x: torch.Tensor) -> torch.Tensor:
     """NHWC (B, H, W, C) -> (B, ceil(H/2), ceil(W/2), C), max over 2x2
-    windows, odd edges padded with -inf (ops/pooling.py:164-173). The
-    refiner applies it to frozen stage-1 maps only, so no gradient runs
-    through it."""
+    windows, odd edges padded with -inf (ops/pooling.py:164-173). Its
+    gradient (amax's) splits a tie evenly, as jnp.max's does; the refiner
+    takes it through the stage-1 maps under train_entire_net."""
     B, H, W, C = x.shape
     Hp, Wp = -(-H // 2) * 2, -(-W // 2) * 2
     if (Hp, Wp) != (H, W):

@@ -38,8 +38,8 @@ from fusiondepth_torch.training.photometric import (
     compute_losses,
     generate_images_pred,
 )
-from fusiondepth_torch.training.train_state import check_stage1_default, \
-    check_train_supported, train_step
+from fusiondepth_torch.training.train_state import check_stage1_variants, \
+    check_train_supported, train_forward, train_step
 from fusiondepth_torch.training.trainer import TRAIN_KEYS
 from fusiondepth_torch.utils.logging import MetricLogger, sec_to_hm_str
 
@@ -97,7 +97,7 @@ def completion_loss(cfg: Config, nets: FusionNets,
     The automask noise is `compute_losses`'s (`noise=` replays given
     draws)."""
     H, W = cfg.height, cfg.width
-    outputs = nets(batch, train=True)
+    outputs = train_forward(cfg, nets, batch)
     outputs = generate_images_pred(cfg, batch, outputs)
     losses = compute_losses(cfg.replace(trainer_siloss=False), batch,
                             outputs, noise=noise, generator=generator)
@@ -138,7 +138,7 @@ class Completor:
         cfg = cfg.replace(num_layers=cfg.completion_num_layers,
                           num_epochs=cfg.completion_num_epochs)
         check_train_supported(cfg)
-        check_stage1_default(cfg, "the completor")
+        check_stage1_variants(cfg, "completor")
         if cfg.grad_accum_steps > 1:
             raise ValueError("completion takes whole-batch steps, as the "
                              "JAX completor does: grad_accum_steps must "
@@ -252,7 +252,7 @@ class Completor:
             return None
         metrics = {k: float(np.mean([r[k] for r in rows])) for k in rows[0]}
         self.loggers["val"].log_scalars(self.step, metrics)
-        print(f"completion val epoch {epoch} | " + " | ".join(
+        print("completion val | " + " | ".join(
             f"{k} {v:.2f}" for k, v in metrics.items()), flush=True)
         if metrics["rmse"] < self.best_rmse:
             self.best_rmse = metrics["rmse"]

@@ -4,7 +4,10 @@ feed-forward pseudo-3D refine decoder (counterpart of
 clone_gdc=True, refine_2d=True).
 
 - The stage-1 nets (encoder, beam encoder, depth decoder, pose nets) are
-  frozen: eval-mode BatchNorm, no gradient.
+  frozen: eval-mode BatchNorm, no gradient. With train_entire_net they
+  take gradients (through the features, the poses and the pseudo-3D
+  maps) and train with the refine decoder, their BatchNorm still in eval
+  mode with its running statistics fixed (reference refiner.py:89-143).
 - Per scale, a pseudo-3D input is built from the stage-1 disparity:
   median-ratio scaling to the 4-beam LiDAR inside the crop [78:190,
   23:617] (one ratio over the whole batch, no gradient through it), the
@@ -48,9 +51,9 @@ from fusiondepth_torch.training.photometric import (
 # (refiner.py:330-331, "375 1242" comment)
 CROP = (78, 190, 23, 617)
 
-# what the refiner's step reads from a batch
+# what the refiner's step reads from a batch (stereo_T for the frame "s")
 REFINE_KEYS = ("color", "color_aug", "two_channel", "four_beam", "K",
-               "inv_K", "inf_gdc")
+               "inv_K", "inf_gdc", "stereo_T")
 
 
 def crop_window(height: int, width: int):
@@ -91,8 +94,9 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 class RefinerNets(nn.Module):
-    """The stage-1 bundle (`stage1`, frozen) and the trainable `refine2d`
-    decoder, on `device`, initialised from `generator`."""
+    """The stage-1 bundle (`stage1`, frozen unless cfg.train_entire_net)
+    and the trainable `refine2d` decoder, on `device`, initialised from
+    `generator`."""
 
     def __init__(self, cfg: Config, device=None,
                  generator: Optional[torch.Generator] = None):
@@ -101,42 +105,47 @@ class RefinerNets(nn.Module):
             generator = torch.Generator().manual_seed(0)
         self.cfg = cfg
         self.stage1 = FusionNets(cfg, device=device, generator=generator)
-        self.stage1.requires_grad_(False)
+        self.stage1.requires_grad_(cfg.train_entire_net)
         self.refine2d = DepthDecoder(
             RESNET_FEATURE_CHANNELS[cfg.num_layers], scales=cfg.scales,
             road=True, catxy=cfg.catxy, deep=cfg.refine2d_deep,
             tanh_head=cfg.refine_offset, generator=generator)
         self.refine2d.to(device=device, dtype=model_dtype(cfg))
 
-    @torch.no_grad()
     def frozen_forward(self, batch: Dict[str, torch.Tensor],
                        poses: bool = True
                        ) -> Tuple[Dict[Any, Any], List[torch.Tensor],
                                   Optional[List[torch.Tensor]]]:
-        """The frozen stage-1 forward of the refiner (eval-mode BN, no
-        gradient): (outputs, feats, beam_feats). outputs holds the NHWC
-        disparities of the depth decoder (fed the beam features only with
-        refine_depthnet_with_beam) and, with `poses`, the poses."""
+        """The stage-1 forward of the refiner (eval-mode BN; no gradient
+        unless cfg.train_entire_net): (outputs, feats, beam_feats).
+        outputs holds the NHWC disparities of the depth decoder (fed the
+        beam features only with refine_depthnet_with_beam) and, with
+        `poses`, the poses."""
         cfg, s1 = self.cfg, self.stage1
         s1.eval()
-        feats = s1.encoder(_nchw(batch["color_aug"][:, 0]))
-        beam_feats = None
-        if s1.beam_encoder is not None:
-            beam_feats = s1.beam_encoder(_nchw(batch["two_channel"][:, 0]))
-        out = s1.depth(feats, beam_features=(
-            beam_feats if cfg.refine_depthnet_with_beam else None))
-        outputs = {k: _nhwc(v) for k, v in out.items()}
-        if poses:
-            outputs.update(s1.predict_poses(batch))
+        with torch.set_grad_enabled(cfg.train_entire_net
+                                    and torch.is_grad_enabled()):
+            feats = s1.encoder(_nchw(batch["color_aug"][:, 0]))
+            beam_feats = None
+            if s1.beam_encoder is not None:
+                beam_feats = s1.beam_encoder(
+                    _nchw(batch["two_channel"][:, 0]))
+            out = s1.depth(feats, beam_features=(
+                beam_feats if cfg.refine_depthnet_with_beam else None))
+            outputs = {k: _nhwc(v) for k, v in out.items()}
+            if poses:
+                outputs.update(s1.predict_poses(batch))
         return outputs, feats, beam_feats
 
-    @torch.no_grad()
     def build_pseudo3d(self, batch: Dict[str, torch.Tensor],
                        outputs: Dict[Any, torch.Tensor]
                        ) -> Dict[Any, torch.Tensor]:
         """{("disp", s): (B, H/2^s, W/2^s, 1 + 3 + 2)} NHWC: the rescaled
         disparity, the XYZ maps (catxy) and the 2-channel LiDAR
-        (refiner.py:316-346)."""
+        (refiner.py:316-346). A gradient of the maps reaches the stage-1
+        disparities (under train_entire_net) through the rescaled
+        disparity and the XYZ maps, not through the median ratio, as in
+        the JAX package (its stop_gradient, refiner.py:139)."""
         cfg = self.cfg
         H, W = cfg.height, cfg.width
         beam = batch["four_beam"]
@@ -160,7 +169,7 @@ class RefinerNets(nn.Module):
             _, depth = disp_to_depth(disp_full, cfg.min_depth, cfg.max_depth)
 
             med_beam = masked_median(beam * 100.0, beam_mask)
-            med_depth = masked_median(depth, beam_mask)
+            med_depth = masked_median(depth.detach(), beam_mask)
             ratio = med_beam / torch.clamp(med_depth, min=1e-6)
             # no beam returns in the crop -> keep depths unscaled
             ratio = torch.where(torch.isfinite(ratio), ratio,
@@ -258,8 +267,9 @@ def refine_loss(cfg: Config, nets: RefinerNets,
                 generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(loss, losses) of one refine batch (the JAX package's
-    `make_refine_loss_fn`): the frozen stage-1 forward and the pseudo-3D
-    maps without gradient, then refine_iter passes of the refine decoder,
+    `make_refine_loss_fn`): the stage-1 forward and the pseudo-3D maps
+    (without gradient unless cfg.train_entire_net), then refine_iter
+    passes of the refine decoder,
     each pass's loss weighted by refine_iter_gama ** (n_iter - it).
     `noise[it][i]` replays the automask noise of pass it at scale i."""
     outputs, feats, beam_feats = nets.frozen_forward(batch)

@@ -1,18 +1,24 @@
 """Stage-2 refiner driver (reference refiner.py:25-264; counterpart of
 `fusiondepth_tpu/training/refiner_driver.py`): loads the frozen stage-1
 weights, trains only the refine2d decoder on the GDC-clone objective, and
-validates on the eigen test split with best-AbsRel checkpointing.
+validates on the eigen test split with best-AbsRel checkpointing. With
+train_entire_net the stage-1 parameters train too, in the same Adam, their
+BatchNorm in eval mode with its running statistics fixed.
 
 Runs on one card (cuda:0 unless `device` names another; device="cpu" for
 the tests), TF32 off. The optimizer is optax.adam(lr * batch / 8) of the
 JAX package, which is torch's Adam with eps 1e-8 outside the square root
-and a constant rate. Checkpoints hold the refine decoder and the
-optimizer state, laid out as `training/checkpoint.py` lays out stage 1's,
-under {log_dir}/{model_name}_refine/models/weights_{tag}; `load` also
-takes a `.npz` of the JAX refine variables (keys "refine2d/params/...").
+and a constant rate. Checkpoints hold the refine decoder (and with
+train_entire_net the fine-tuned stage-1 nets, under their own names, the
+JAX bundle's `stage1_variables`) and the optimizer state, laid out as
+`training/checkpoint.py` lays out stage 1's, under
+{log_dir}/{model_name}_refine/models/weights_{tag}; `load` also takes a
+`.npz` of the JAX variables (keys "refine2d/params/...", "encoder/...";
+`scripts/convert_checkpoint.py` writes one from a JAX refine checkpoint).
 
-Not ported, and refused with NotImplementedError: train_entire_net and
-the sparse-3D family (refine_shallow, refineUnet, refine_deep).
+Stage-1 variants: see `train_state.py::check_stage1_variants`. Not
+ported, and refused with NotImplementedError: the sparse-3D family
+(refine_shallow, refineUnet, refine_deep).
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ from fusiondepth_torch.training.infer_driver import device_batch, \
     resolve_device
 from fusiondepth_torch.training.refiner import REFINE_KEYS, RefinerNets, \
     refine_loss
-from fusiondepth_torch.training.train_state import check_stage1_default, \
+from fusiondepth_torch.training.train_state import check_stage1_variants, \
     check_train_supported
 from fusiondepth_torch.utils.logging import MetricLogger, sec_to_hm_str
 
@@ -44,9 +50,8 @@ INFER_KEYS = ("color_aug", "two_channel", "four_beam", "K")
 class Refiner:
     def __init__(self, cfg: Config, train_dataset=None, val_dataset=None,
                  device=None):
-        unported = [f for f in ("train_entire_net", "refine_shallow",
-                                "refineUnet", "refine_deep")
-                    if getattr(cfg, f)]
+        unported = [f for f in ("refine_shallow", "refineUnet",
+                                "refine_deep") if getattr(cfg, f)]
         if unported:
             raise NotImplementedError(
                 f"{', '.join(unported)}: not ported to fusiondepth_torch "
@@ -54,7 +59,7 @@ class Refiner:
         # the reference forces these on (refiner.py:29-30)
         cfg = cfg.replace(clone_gdc=True, refine_2d=True)
         check_train_supported(cfg)
-        check_stage1_default(cfg, "the refiner")
+        check_stage1_variants(cfg, "refiner")
         self.cfg = cfg
         self.device = resolve_device(device)
         if self.device.type == "cuda":
@@ -75,7 +80,7 @@ class Refiner:
         self.train_dataset = train_dataset
         self.val_dataset = val_dataset
         self.optimizer = torch.optim.Adam(
-            self.nets.refine2d.parameters(),
+            self._bundle().parameters(),
             lr=cfg.learning_rate * (cfg.batch_size / 8.0), eps=1e-8)
         self.generator = torch.Generator(device=self.device).manual_seed(
             cfg.seed + 3)
@@ -87,8 +92,13 @@ class Refiner:
         self._t0 = time.time()
 
     def _bundle(self) -> torch.nn.Module:
-        """The checkpointed module: the refine decoder under `refine2d`."""
-        return torch.nn.ModuleDict({"refine2d": self.nets.refine2d})
+        """The trained and checkpointed module: the refine decoder under
+        `refine2d`, and with train_entire_net each stage-1 net under its
+        own name."""
+        nets = {"refine2d": self.nets.refine2d}
+        if self.cfg.train_entire_net:
+            nets.update(self.nets.stage1.named_children())
+        return torch.nn.ModuleDict(nets)
 
     def put_batch(self, batch) -> Dict[str, torch.Tensor]:
         """Host batch -> the step's inputs on the card, in the model
@@ -133,7 +143,7 @@ class Refiner:
     @torch.inference_mode()
     def infer(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Refined scale-0 disparity (B, H, W, 1) of one device batch:
-        frozen stage-1 forward, pseudo-3D maps, refine decoder."""
+        stage-1 forward, pseudo-3D maps, refine decoder."""
         outputs, feats, beam_feats = self.nets.frozen_forward(
             batch, poses=False)
         maps = self.nets.build_pseudo3d(batch, outputs)
@@ -161,15 +171,17 @@ class Refiner:
         return metrics
 
     def save(self, tag: str) -> str:
-        """Save the refine decoder and the optimizer state; returns the
-        weights folder."""
+        """Save the refine decoder (and with train_entire_net the stage-1
+        nets) and the optimizer state; returns the weights folder."""
         cfg = self.cfg.replace(model_name=self.cfg.model_name + "_refine")
         return ckpt.save_checkpoint(cfg, self._bundle(), tag,
                                     self.optimizer, step=self.step)
 
     def load(self, path: str) -> None:
         """Load a weights folder written by `save` (with its optimizer
-        state), or JAX refine variables flattened into a `.npz`."""
+        state), or JAX refine variables flattened into a `.npz` (a folder
+        holding `variables.npz`, as `scripts/convert_checkpoint.py` writes
+        it, or the file)."""
         meta = ckpt.load_checkpoint(path, self._bundle(), self.optimizer)
         self.step = int(meta.get("step", self.step))
 

@@ -8,19 +8,27 @@ cfg.grad_accum_steps > 1 the batch is split into microbatches along its
 leading axis; gradients are averaged and the BN statistics carry from one
 microbatch to the next, as the JAX package's lax.scan carries them.
 
-Not ported yet: `remat` (recomputing through torch.utils.checkpoint would
-update the BN running statistics twice) and bfloat16 compute
-(`models/fusion.py::model_dtype`).
+With cfg.remat the whole training-mode forward of the nets is one
+non-reentrant torch.utils.checkpoint region, the region the JAX package
+wraps in jax.checkpoint (`train_forward`): its activations are recomputed
+in the backward instead of kept. The recompute runs with the BN
+running-statistics update held (`models/norm.py::running_stats_held`), so
+the statistics move once a step.
+
+Not ported yet: bfloat16 compute (`models/fusion.py::model_dtype`).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Sequence, Tuple
+import contextlib
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from fusiondepth_torch.config import Config
 from fusiondepth_torch.models.fusion import FusionNets, model_dtype
+from fusiondepth_torch.models.norm import running_stats_held
 from fusiondepth_torch.training.photometric import (
     compute_losses,
     generate_images_pred,
@@ -28,30 +36,39 @@ from fusiondepth_torch.training.photometric import (
 
 
 def check_train_supported(cfg: Config) -> None:
-    """Raise NotImplementedError for train options the port lacks: remat
-    and bfloat16."""
+    """Raise NotImplementedError for the train option the port lacks:
+    bfloat16."""
     model_dtype(cfg)
-    if cfg.remat:
-        raise NotImplementedError(
-            "remat: not ported to fusiondepth_torch yet (recomputing the "
-            "forward would update the BN running statistics twice)")
 
 
-def check_stage1_default(cfg: Config, where: str) -> None:
-    """Raise NotImplementedError for the stage-1 training variants that
-    `where` (the refiner, the completor) has not been held with against
-    the JAX package: v1_multiscale, use_stereo, predictive_mask, and pose
-    nets other than separate_resnet over frame pairs."""
-    on = [f for f in ("v1_multiscale", "use_stereo", "predictive_mask")
-          if getattr(cfg, f)]
-    if cfg.pose_model_type != "separate_resnet":
-        on.append(f"pose_model_type={cfg.pose_model_type!r}")
-    if cfg.pose_model_input != "pairs":
-        on.append(f"pose_model_input={cfg.pose_model_input!r}")
-    if on:
+def check_stage1_variants(cfg: Config, driver: str) -> None:
+    """Raise NotImplementedError, with the reason, for the stage-1 training
+    variants that `driver` ("completor" or "refiner") refuses: those its
+    JAX counterpart cannot run. The completor takes every other variant
+    (v1_multiscale, predictive_mask, the posecnn and shared pose types,
+    pose_model_input="all"); the refiner takes posecnn, "all", use_stereo
+    and predictive_mask (which there only disables the automask: the
+    refine loss reads no mask)."""
+    if driver == "completor" and cfg.use_stereo:
         raise NotImplementedError(
-            f"{where} with {', '.join(on)}: not ported to fusiondepth_torch "
-            "yet")
+            "the completor with use_stereo: the completion dataset reads "
+            "frame i at the integer offset frame_index + i "
+            "(fusiondepth_torch/data/completion_dataset.py:202-207, as "
+            "fusiondepth_tpu/data/completion_dataset.py:202-206), so the "
+            "stereo frame 's' has no sample")
+    if driver == "refiner" and cfg.v1_multiscale:
+        raise NotImplementedError(
+            "the refiner with v1_multiscale: the refine loss reads the "
+            "planes formulation's warped_planes, which the per-scale "
+            "formulation does not write (fusiondepth_tpu/training/"
+            "refiner.py:242 fails with a KeyError)")
+    if driver == "refiner" and cfg.pose_model_type == "shared":
+        raise NotImplementedError(
+            "the refiner with pose_model_type='shared': the JAX refiner "
+            "gives predict_poses frame 0's feature pyramid where the shared "
+            "pose decoder reads one pyramid per frame "
+            "(fusiondepth_tpu/training/refiner.py:194), and its pose "
+            "decoder's squeeze conv then fails on the shape of its input")
 
 
 def make_optimizer(cfg: Config, nets: torch.nn.Module,
@@ -71,12 +88,24 @@ def make_optimizer(cfg: Config, nets: torch.nn.Module,
     return opt, sched
 
 
+def train_forward(cfg: Config, nets: FusionNets,
+                  batch: Dict[str, torch.Tensor]) -> Dict[Any, Any]:
+    """`nets(batch, train=True)`; with cfg.remat under one non-reentrant
+    checkpoint whose recompute holds the BN running statistics."""
+    if not cfg.remat:
+        return nets(batch, train=True)
+    return torch.utils.checkpoint.checkpoint(
+        nets, batch, True, use_reentrant=False,
+        context_fn=lambda: (contextlib.nullcontext(),
+                            running_stats_held(nets)))
+
+
 def loss_fn(cfg: Config, nets: FusionNets, batch: Dict[str, torch.Tensor],
             noise: Optional[Sequence[torch.Tensor]] = None,
             generator: Optional[torch.Generator] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(loss, losses) of one batch, the nets in training mode."""
-    outputs = nets(batch, train=True)
+    outputs = train_forward(cfg, nets, batch)
     outputs = generate_images_pred(cfg, batch, outputs)
     losses = compute_losses(cfg, batch, outputs, noise=noise,
                             generator=generator)

@@ -16,8 +16,10 @@ runs ahead of the step in a thread (data/prefetch.py) with pinned,
 non-blocking uploads; losses are read back only every log_frequency steps.
 Every stage-1 training variant of the JAX package trains here
 (v1_multiscale, use_stereo, predictive_mask, the posecnn and shared pose
-types, pose_model_input="all"); data parallelism (use_mesh, several
-processes), remat and bfloat16 are not ported yet.
+types, pose_model_input="all") and remat; data parallelism (use_mesh,
+several processes) and bfloat16 are not ported yet. With save_sample or
+visualize, `validate` logs the first batch's frame-0 disparity and colour
+image (PNGs next to the metrics), as the JAX trainer does.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import os
 import time
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from fusiondepth_torch.config import Config
@@ -202,12 +205,23 @@ class Trainer:
             return None
         loader = self._loader(self.val_dataset, shuffle=False)
         disps, gts = [], []
+        sample_logged = False
         with torch.inference_mode():
             for batch in loader:
                 db = device_batch(batch, self.device, DEPTH_KEYS)
                 out = self.nets.forward_depth(db, train=False)[0]
-                disps.extend(out[("disp", 0)][..., 0].float().cpu().numpy())
+                disp = out[("disp", 0)][..., 0].float().cpu().numpy()
+                disps.extend(disp)
                 gts.extend(batch.get("depth_gt", []))
+                if (self.cfg.save_sample or self.cfg.visualize) \
+                        and not sample_logged:
+                    # the first batch's frame 0, as the JAX trainer logs it
+                    d = disp[0]
+                    self.loggers["val"].log_image(
+                        self.step, "disp_0", d / max(float(d.max()), 1e-9))
+                    self.loggers["val"].log_image(
+                        self.step, "color_0", np.asarray(batch["color"])[0, 0])
+                    sample_logged = True
         if not gts:
             return None
         metrics = evaluate_disparities(disps, gts)

@@ -8,13 +8,21 @@ refiner's defaults (refine_iter 1, refine_a0, GDC loss on scale 0 only),
 in float64 on both sides with the same weights (carried by
 models/jax_weights) and the same automask noise (the JAX draws replayed).
 The JAX side is one jitted function per module, on the JAX package's
-generic path (its TPU layout flags off, test_torch_port_models.GENERIC):
-make_refine_loss_fn under jax.value_and_grad, with its pseudo-3D maps and refined disparities read
-out of that trace, and one optax.adam step from those gradients.
+generic path (its TPU layout flags off, test_torch_port_models.GENERIC),
+with the planes box3's products kept in float64
+(test_torch_port_ops._box3_f64): the JAX Refiner's `entire_loss`
+(make_refine_loss_fn with the stage-1 parameters trainable and their BN
+statistics fixed, fusiondepth_tpu/training/refiner_driver.py:66-75) under
+jax.value_and_grad, with its pseudo-3D maps and refined disparities read
+out of that trace, one optax.adam step of the refine decoder (the frozen
+refiner's) and one of the refine and stage-1 parameters together
+(train_entire_net's). Without train_entire_net the JAX loss only stops
+the gradient at the stage-1 outputs, so its value, its maps and its
+refine2d gradients are the same numbers: one trace serves both modes.
 
 Tolerances: the pseudo-3D maps and refined disparities to 1e-9; the loss
-to 1e-7 absolute and every refine2d gradient leaf to rtol 1e-5,
-atol 1e-9, the bounds of the stage-1 train step
+to 1e-7 absolute and every refine2d gradient leaf (and under
+train_entire_net every stage-1 leaf) to rtol 1e-5, atol 1e-9, the bounds of the stage-1 train step
 (tests/test_torch_port_train.py): the JAX box3 rounds to float32 even
 under x64, and the refine loss's means accumulate in float32
 (`to_optimise.mean(dtype=float32)`); the parameters after one Adam step
@@ -33,6 +41,7 @@ import jax.numpy as jnp
 from fusiondepth_tpu.config import Config as JaxConfig
 from fusiondepth_tpu.models.depth_decoder import DepthDecoder as JaxDecoder
 from fusiondepth_tpu.ops import geometry as jgeometry
+from fusiondepth_tpu.ops import planes as jax_planes
 from fusiondepth_tpu.ops import pooling as jpooling
 from fusiondepth_tpu.training.refiner import RefinerNets as JaxRefinerNets
 from fusiondepth_tpu.training.refiner import make_refine_loss_fn
@@ -41,7 +50,8 @@ from fusiondepth_torch.config import Config
 from fusiondepth_torch.data.synthetic import SyntheticDataset
 from fusiondepth_torch.models.depth_decoder import DepthDecoder
 from fusiondepth_torch.models.fusion import FusionNets
-from fusiondepth_torch.models.jax_weights import flatten, from_jax_variables
+from fusiondepth_torch.models.jax_weights import flatten, \
+    from_jax_variables, to_jax_variables
 from fusiondepth_torch.models.resnet import RESNET_FEATURE_CHANNELS
 from fusiondepth_torch.ops.geometry import cat_xy
 from fusiondepth_torch.ops.pooling import masked_median, max_pool2x2_ceil
@@ -60,6 +70,7 @@ from fusiondepth_torch.training.refiner_driver import INFER_KEYS, Refiner
 from test_torch_port_models import few_torch_threads  # noqa: F401
 from test_torch_port_models import GENERIC, jit, load_into, nchw, \
     random_variables
+from test_torch_port_ops import _box3_f64
 from test_torch_port_train import assert_trees_close
 
 B, H, W = 2, 64, 96
@@ -157,7 +168,8 @@ def make_inputs():
 def jax_side():
     batch = make_inputs()
     with jax.enable_x64():
-        cfg = JaxConfig(**KW, pallas_warp=False, **GENERIC)
+        cfg = JaxConfig(**KW, train_entire_net=True, pallas_warp=False,
+                        **GENERIC)
         nets = JaxRefinerNets(cfg)
         rng = np.random.default_rng(0)
         frozen = random_variables(
@@ -166,6 +178,7 @@ def jax_side():
         refine_params = random_variables(
             lambda: nets.init_refine(jax.random.PRNGKey(3), batch_size=B),
             rng, np.float64)
+        stats = {k: v.get("batch_stats", {}) for k, v in frozen.items()}
         key = jax.random.PRNGKey(42)
         loss_fn = make_refine_loss_fn(cfg, nets)
         lr = cfg.learning_rate * B / 8.0
@@ -184,27 +197,41 @@ def jax_side():
             seen["maps"] = build(*args)
             return seen["maps"]
 
-        def loss_and_maps(rp, frozen, batch, key):
+        def loss_and_maps(trainable, batch, key):
+            # entire_loss: the stage-1 parameters with their fixed BN
+            # statistics
+            fixed = {}
+            for k, p in trainable["stage1"].items():
+                fixed[k] = {"params": p}
+                if stats[k]:
+                    fixed[k]["batch_stats"] = stats[k]
             nets.build_pseudo3d, nets.refine2d = recording_build, \
                 RecordingDecoder()
             try:
-                loss, losses = loss_fn(rp, frozen, batch, key)
+                loss, losses = loss_fn(trainable["refine"], fixed, batch,
+                                       key)
             finally:
                 del nets.build_pseudo3d
                 nets.refine2d = decoder
             return loss, (losses, seen.pop("maps"), seen.pop("refined"))
 
-        def run(rp, frozen, batch, key):
+        def run(trainable, batch, key):
             (loss, (losses, maps, refined)), grads = jax.value_and_grad(
-                loss_and_maps, has_aux=True)(rp, frozen, batch, key)
-            updates, _ = tx.update(grads, tx.init(rp), rp)
+                loss_and_maps, has_aux=True)(trainable, batch, key)
+            rp = trainable["refine"]
+            updates, _ = tx.update(grads["refine"], tx.init(rp), rp)
+            every, _ = tx.update(grads, tx.init(trainable), trainable)
             return (maps, refined, loss, losses, grads,
-                    optax.apply_updates(rp, updates))
+                    optax.apply_updates(rp, updates),
+                    optax.apply_updates(trainable, every))
 
-        out = jit(run)(refine_params, frozen,
-                           {k: jnp.asarray(x) for k, x in batch.items()},
-                           key)
-        maps, refined, loss, losses, grads, new_rp = jax.tree.map(
+        trainable = {"refine": refine_params,
+                     "stage1": {k: v["params"] for k, v in frozen.items()}}
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(jax_planes, "box3", _box3_f64)
+            out = jit(run)(trainable, {k: jnp.asarray(x)
+                                       for k, x in batch.items()}, key)
+        maps, refined, loss, losses, grads, new_rp, new_all = jax.tree.map(
             np.asarray, out)
         # the automask noise: loss_fn splits once per refine iteration,
         # _refine_losses once per scale
@@ -214,17 +241,22 @@ def jax_side():
             sub, s = jax.random.split(sub)
             noise.append(torch.from_numpy(np.asarray(jax.random.normal(
                 s, (len(SRC), B, H, W))) * 1e-5))
-    return dict(frozen=frozen, refine_params=refine_params, batch=batch,
-                maps=maps, refined=refined, loss=float(loss), losses=losses,
-                grads=grads, new_params=new_rp, noise=noise, lr=lr)
+    return dict(frozen={k: frozen[k] for k in STAGE1},
+                refine_params=refine_params, batch=batch, maps=maps,
+                refined=refined, loss=float(loss), losses=losses,
+                grads=grads["refine"], entire_grads=grads,
+                new_params=new_rp, new_entire=new_all, noise=noise, lr=lr)
 
 
-def port_nets(jax_side):
-    nets = RefinerNets(Config(**KW), device=CPU)
-    nets.stage1.load_state_dict(from_jax_variables(
-        {k: jax_side["frozen"][k] for k in STAGE1}))
-    load_into(nets.refine2d, "refine2d", jax_side["refine_params"])
+def port_nets(jax_side, **flags):
+    nets = RefinerNets(Config(**KW, **flags), device=CPU)
+    load_jax(nets, jax_side)
     return nets
+
+
+def load_jax(nets, jax_side):
+    nets.stage1.load_state_dict(from_jax_variables(jax_side["frozen"]))
+    load_into(nets.refine2d, "refine2d", jax_side["refine_params"])
 
 
 def port_batch(jax_side):
@@ -273,8 +305,6 @@ def test_refine_loss_grads_and_one_adam_step_match_jax_f64(jax_side):
     assert all(p.grad is None for p in nets.stage1.parameters())
     grads = {f"refine2d.{n}": p.grad
              for n, p in nets.refine2d.named_parameters()}
-    from fusiondepth_torch.models.jax_weights import to_jax_variables
-
     assert_trees_close(to_jax_variables(grads)["refine2d"],
                        jax_side["grads"], rtol=1e-5, atol=1e-9)
     opt = torch.optim.Adam(nets.refine2d.parameters(), lr=jax_side["lr"],
@@ -398,14 +428,77 @@ def test_refiner_epoch_checkpoint_and_refined_evaluation(tmp_path):
     assert all(np.isfinite(v) for v in got.values())
 
 
-def to_jax(refiner):
-    from fusiondepth_torch.models.jax_weights import to_jax_variables
+# ---- train_entire_net ----
 
-    return to_jax_variables(torch.nn.ModuleDict(
-        {"refine2d": refiner.nets.refine2d}).state_dict())
+def entire_grads(nets):
+    """{"refine": ..., "stage1": {net: params}} of the port's gradients,
+    the leaves the loss does not read (None) as zeros."""
+    def tree(named):
+        return to_jax_variables({n: torch.zeros_like(p) if p.grad is None
+                                 else p.grad for n, p in named})
+
+    return {"refine": tree(nets.refine2d.named_parameters(
+                prefix="refine2d"))["refine2d"],
+            "stage1": {k: v["params"] for k, v in tree(
+                nets.stage1.named_parameters()).items()}}
 
 
-@pytest.mark.parametrize("flag", ["train_entire_net", "refine_deep"])
+def test_entire_net_loss_and_grads_match_jax_f64(jax_side):
+    """train_entire_net: refine_loss with the stage-1 nets trainable, its
+    loss and every gradient leaf against entire_loss's. The gradient
+    reaches the encoders through the features, the depth decoder through
+    the pseudo-3D maps and the pose nets through the warps; the depth
+    decoder's heads at scales 1-3 are unread (refine_a0): 0 in JAX, None
+    here."""
+    nets = port_nets(jax_side, train_entire_net=True)
+    loss, losses = refine_loss(nets.cfg, nets, port_batch(jax_side),
+                               noise=[jax_side["noise"]])
+    assert abs(loss.item() - jax_side["loss"]) < 1e-7, (
+        loss.item(), jax_side["loss"])
+    assert set(losses) == set(jax_side["losses"])
+    loss.backward()
+    unread = {n for n, p in nets.stage1.named_parameters() if p.grad is None}
+    assert unread == {f"depth.dispconv_{s}.conv.{leaf}" for s in (1, 2, 3)
+                      for leaf in ("weight", "bias")}
+    assert_trees_close(entire_grads(nets), jax_side["entire_grads"],
+                       rtol=1e-5, atol=1e-9)
+
+
+def test_entire_net_run_step_matches_jax_and_keeps_bn_stats(jax_side,
+                                                            tmp_path):
+    """One Refiner.run_step with train_entire_net: the refine and stage-1
+    parameters after its Adam step against the JAX step's, the stage-1
+    BN running statistics unchanged (the checkpoint round trip is
+    tests/test_torch_port_refiner_variants.py's, in float32)."""
+    from fusiondepth_torch.training import refiner_driver
+
+    cfg = Config(**KW, train_entire_net=True, log_dir=str(tmp_path))
+    refiner = Refiner(cfg, device="cpu")
+    load_jax(refiner.nets, jax_side)
+    buffers = {n: b.clone() for n, b in refiner.nets.named_buffers()}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(refiner_driver, "refine_loss",
+                   lambda cfg, nets, b, generator=None: refine_loss(
+                       cfg, nets, b, noise=[jax_side["noise"]]))
+        losses = refiner.run_step(jax_side["batch"])
+    assert abs(float(losses["loss"]) - jax_side["loss"]) < 1e-7
+    for n, b in refiner.nets.named_buffers():
+        assert torch.equal(b, buffers[n]), n
+    got = to_jax(refiner, stage1=True)
+    assert_trees_close(got.pop("refine2d"), jax_side["new_entire"]["refine"],
+                       rtol=0, atol=1e-6)
+    assert_trees_close({k: v["params"] for k, v in got.items()},
+                       jax_side["new_entire"]["stage1"], rtol=0, atol=1e-6)
+
+
+def to_jax(refiner, stage1=False):
+    nets = {"refine2d": refiner.nets.refine2d}
+    if stage1:
+        nets.update(refiner.nets.stage1.named_children())
+    return to_jax_variables(torch.nn.ModuleDict(nets).state_dict())
+
+
+@pytest.mark.parametrize("flag", ["refineUnet", "refine_deep"])
 def test_refiner_unported_options_raise(flag, tmp_path):
     cfg = Config(num_layers=18, height=64, width=96, batch_size=2,
                  weights_init="scratch", log_dir=str(tmp_path), **{flag: True})

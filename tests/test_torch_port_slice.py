@@ -12,6 +12,7 @@ inference cache stores float32 files, so those are held to one float32
 rounding (atol 1e-7).
 """
 
+import importlib.util
 import os
 
 import numpy as np
@@ -24,7 +25,15 @@ import jax.numpy as jnp
 from fusiondepth_tpu.config import Config as JaxConfig
 from fusiondepth_tpu.data.synthetic import SyntheticDataset, make_batch
 from fusiondepth_tpu.models.fusion import FusionNets as JaxFusionNets
+from fusiondepth_tpu.training.checkpoint import \
+    load_checkpoint as jax_load_checkpoint
+from fusiondepth_tpu.training.checkpoint import \
+    save_checkpoint as jax_save_checkpoint
 from fusiondepth_tpu.training.evaluation import flip_postprocess
+from fusiondepth_tpu.training.train_state import TrainState, \
+    combine_variables, split_variables
+from fusiondepth_tpu.training.train_state import \
+    make_optimizer as jax_make_optimizer
 from fusiondepth_torch.config import Config
 from fusiondepth_torch.models.fusion import FusionNets
 from fusiondepth_torch.models.jax_weights import NETS, flatten, \
@@ -36,6 +45,7 @@ from fusiondepth_torch.training.infer_driver import Infer, device_batch
 from test_torch_port_models import few_torch_threads  # noqa: F401
 from test_torch_port_models import jit, random_variables
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, H, W = 2, 64, 96
 # the JAX Config and the port's from the same keyword arguments
 KW = dict(num_layers=18, height=H, width=W, compute_dtype="float64",
@@ -104,7 +114,8 @@ def jax_side():
             frame_disp.extend(d)
             post.extend(flip_postprocess(d, d_f[:, :, ::-1]))
     return dict(variables={k: v[k] for k in NETS if k in v}, batch=batch,
-                fwd=fwd, frames=frames, frame_disp=frame_disp, post=post)
+                fwd=fwd, frames=frames, frame_disp=frame_disp, post=post,
+                fwd_fn=fwd_fn)
 
 
 @pytest.fixture(scope="module")
@@ -204,3 +215,146 @@ def test_checkpoint_round_trip(port_nets, tmp_path):
     assert os.path.exists(tmp_path / cfg.model_name / "models" / "opt.json")
     for k, v in port_nets.state_dict().items():
         assert torch.equal(fresh.state_dict()[k], v), k
+
+
+# ---- checkpoint interchange (scripts/convert_checkpoint.py) ----
+
+def convert(*argv):
+    spec = importlib.util.spec_from_file_location(
+        "convert_checkpoint", os.path.join(REPO, "scripts",
+                                           "convert_checkpoint.py"))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    assert script.main(list(argv)) == 0
+
+
+def fresh(tx, params):
+    """tx.init(params), made in numpy from its shapes (zero moments,
+    counts 0)."""
+    return jax.tree.map(lambda a: np.zeros(a.shape, a.dtype),
+                        jax.eval_shape(tx.init, params))
+
+
+def jax_state(variables, step):
+    params, stats = split_variables(variables)
+    return TrainState(params, stats, fresh(jax_make_optimizer(JCFG, 1),
+                                           params),
+                      jnp.asarray(step, jnp.int32))
+
+
+def test_jax_checkpoint_converts_to_the_port(jax_side, tmp_path):
+    """JAX save_checkpoint -> convert to-port -> the port's
+    load_checkpoint: forward_depth gives the JAX forward's disparities."""
+    with jax.enable_x64():
+        src = jax_save_checkpoint(JCFG.replace(log_dir=str(tmp_path)),
+                                  jax_state(jax_side["variables"], 7), "0")
+        convert("to-port", src, str(tmp_path / "port"))
+    nets = FusionNets(CFG, device=CPU,
+                      generator=torch.Generator().manual_seed(1))
+    meta = ckpt.load_checkpoint(str(tmp_path / "port"), nets)
+    assert meta["step"] == 7 and meta["height"] == H
+    with torch.no_grad():
+        out, _ = nets.forward_depth(device_batch(jax_side["batch"], CPU))
+    for k, want in jax_side["fwd"].items():
+        np.testing.assert_allclose(out[k].numpy(), want, atol=1e-9,
+                                   rtol=0, err_msg=str(k))
+
+
+def test_port_checkpoint_converts_to_jax(jax_side, port_nets, tmp_path):
+    """The port's save_checkpoint -> convert to-jax -> the JAX
+    load_checkpoint restores every leaf, and its forward gives the same
+    disparities; the optimizer state is a fresh Adam at the saved step."""
+    cfg = CFG.replace(log_dir=str(tmp_path))
+    src = ckpt.save_checkpoint(cfg, port_nets, "p", step=11)
+    dst = str(tmp_path / "jax" / "weights_p")
+    convert("to-jax", src, dst)
+    with jax.enable_x64():
+        template = jax_state(jax.tree.map(np.zeros_like,
+                                          jax_side["variables"]), 0)
+        state, meta = jax_load_checkpoint(dst, template)
+        assert meta["step"] == 11 and int(state.step) == 11
+        adam, schedule = state.opt_state
+        assert int(schedule.count) == 11 and int(adam.count) == 0
+        assert not any(np.asarray(m).any()
+                       for m in jax.tree.leaves(adam.mu))
+        got = jax.tree.map(np.asarray, jax_side["fwd_fn"](
+            combine_variables(state.params, state.batch_stats),
+            {k: jnp.asarray(x) for k, x in jax_side["batch"].items()}))
+    for k, want in jax_side["fwd"].items():
+        np.testing.assert_allclose(got[k], want, atol=1e-9, rtol=0,
+                                   err_msg=str(k))
+
+
+def test_jax_refiner_bundle_converts_to_the_port(jax_side, tmp_path):
+    """A JAX refiner bundle with train_entire_net (refine_params,
+    opt_state and stage1_variables, the tree the JAX Refiner.save saves)
+    -> convert to-port -> the port's Refiner.load: the refine decoder and
+    the fine-tuned stage-1 nets carry every leaf. The refine decoder's
+    variables are the port decoder's own init in the JAX layout (the flax
+    init's tree; tests/test_torch_port_refiner.py holds the decoders
+    equal), zeroed in the port before the load."""
+    import optax
+    import orbax.checkpoint as ocp
+
+    from fusiondepth_torch.models.jax_weights import to_jax_variables
+    from fusiondepth_torch.training.refiner_driver import Refiner
+
+    cfg = CFG.replace(train_entire_net=True, log_dir=str(tmp_path),
+                      batch_size=B)
+    refiner = Refiner(cfg, device="cpu")
+    refine_params = to_jax_variables(refiner.nets.refine2d.state_dict(
+        prefix="refine2d."))["refine2d"]
+    with torch.no_grad():
+        for t in refiner._bundle().state_dict().values():
+            t.zero_()
+    with jax.enable_x64():
+        stage1 = jax_side["variables"]
+        trainable = {"refine": refine_params,
+                     "stage1": {k: v["params"] for k, v in stage1.items()}}
+        bundle = {"refine_params": refine_params,
+                  "opt_state": fresh(optax.adam(1e-4), trainable),
+                  "stage1_variables": stage1}
+        src = str(tmp_path / "jax_refine" / "weights_best_refine")
+        ckptr = ocp.StandardCheckpointer()
+        ckptr.save(src, bundle, force=True)
+        ckptr.wait_until_finished()
+    convert("to-port", src, str(tmp_path / "port_refine"))
+    refiner.load(str(tmp_path / "port_refine"))
+    got = to_jax_variables(refiner._bundle().state_dict())
+    want = {"refine2d": refine_params, **stage1}
+    assert set(got) == set(want)
+    for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+        np.testing.assert_array_equal(a, b)
+
+
+# ---- Trainer.validate's sample images ----
+
+@pytest.mark.parametrize("flag", ["save_sample", "visualize"])
+def test_trainer_validate_logs_the_jax_sample_images(flag, jax_side,
+                                                     tmp_path):
+    """With save_sample or visualize, Trainer.validate writes the first
+    batch's frame-0 disparity (over its max) and colour image as
+    disp_0_{step}.png and color_0_{step}.png, the files the JAX trainer's
+    validate writes through its logger (without TensorBoard) from the
+    JAX disparity of the same frame: byte-equal."""
+    from fusiondepth_tpu.utils.logging import MetricLogger as JaxLogger
+    from fusiondepth_torch.training.trainer import Trainer
+
+    frames = jax_side["frames"]
+    cfg = CFG.replace(log_dir=str(tmp_path / "port"), batch_size=B,
+                      **{flag: True})
+    trainer = Trainer(cfg, train_dataset=frames, val_dataset=frames,
+                      device="cpu")
+    trainer.nets.load_state_dict(from_jax_variables(jax_side["variables"]))
+    trainer.step = 3
+    assert trainer.validate() is None  # the frames carry no depth_gt
+    jax_log = JaxLogger(str(tmp_path / "jax"), "val", use_tb=False)
+    d = jax_side["frame_disp"][0]
+    jax_log.log_image(3, "disp_0", d / max(float(d.max()), 1e-9))
+    jax_log.log_image(3, "color_0", frames[0]["color"][0])
+    port_dir = tmp_path / "port" / cfg.model_name / "val"
+    for name in ("disp_0_3.png", "color_0_3.png"):
+        got = (port_dir / name).read_bytes()
+        assert got == (tmp_path / "jax" / "val" / name).read_bytes(), name
+    assert sorted(p.name for p in port_dir.glob("*.png")) == [
+        "color_0_3.png", "disp_0_3.png"]

@@ -287,7 +287,8 @@ def test_trainer_steps_checkpoint_and_infer_round_trip(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    dict(compute_dtype="bfloat16"), dict(remat=True), dict(use_mesh=True)])
+    dict(compute_dtype="bfloat16"), dict(num_processes=2),
+    dict(use_mesh=True)])
 def test_unported_options_raise(flag, tmp_path):
     cfg = Config(num_layers=18, height=64, width=96, batch_size=2,
                  weights_init="scratch", log_dir=str(tmp_path), **flag)
