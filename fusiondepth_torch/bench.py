@@ -20,7 +20,8 @@ Prints ONE JSON line to stdout, {"metric", "value", "unit", "vs_baseline",
      loader's threads feed the step (baseline 350 samples/s)
 `--set KEY=VALUE` overrides a Config field of the benched config (the
 value parsed as JSON when it can be); `--set batch_size=N` sets the batch
-of configs 3-6. The port runs float32 with TF32 off.
+of configs 3-6. The port runs float32 with TF32 off unless
+`--set compute_dtype=bfloat16`.
 
 Config 5 departs from bench.py's: that one times the stage-1 train step
 at R50 1216x352 (R50 pose encoders, the stage-1 loss) under
@@ -39,8 +40,11 @@ the median.
 to its plain version) with torch.utils.flop_counter.FlopCounterMode, which
 sees convolutions and matmuls only and counts the same work whatever
 implements it; `tflops` and `mfu` follow from the median against the
-card's fp32 peak (`PEAK_FP32_TFLOPS`, by device name). `device_kind` is
-torch's name for the card and `card` nvidia-smi's name and power limit.
+card's peak for the dtype that compute_dtype names (`PEAK_FP32_TFLOPS`,
+`PEAK_BF16_TFLOPS`, by device name): `--set compute_dtype=bfloat16` runs
+the bf16 path (configs 1-3; the refiner and the completor refuse it) and
+divides by the dense bf16 tensor-core peak. `device_kind` is torch's name
+for the card and `card` nvidia-smi's name and power limit.
 
 Needs a card: `--device` (default cuda:0) is there only so that a test can
 run config 1 on the CPU; the bench never falls back to the CPU by itself.
@@ -78,9 +82,14 @@ WARMUP, STEPS = 3, 10
 # match wins (NVIDIA data sheets): the rate of an fp32 run with TF32 off
 PEAK_FP32_TFLOPS = (("h100 pcie", 51.2), ("h100", 66.9), ("h200", 66.9),
                     ("a100", 19.5))
+# dense bf16 tensor-core peak TF/s, the same way: the rate of a run with
+# compute_dtype="bfloat16"
+PEAK_BF16_TFLOPS = (("h100 pcie", 756.0), ("h100", 989.0), ("h200", 989.0),
+                    ("a100", 312.0))
 MFU_NOTE = ("flops_per_step counts convolutions and matmuls only "
-            "(torch.utils.flop_counter over one all-plain step); TF32 is "
-            "off, so mfu is against the fp32 CUDA-core peak")
+            "(torch.utils.flop_counter over one all-plain step); mfu is "
+            "against the peak of compute_dtype: the fp32 CUDA-core peak "
+            "(TF32 is off) or the dense bf16 tensor-core peak")
 
 
 def parse_set(items) -> Dict[str, object]:
@@ -97,8 +106,16 @@ def parse_set(items) -> Dict[str, object]:
 
 
 def peak_fp32_tflops(kind: str) -> Optional[float]:
+    return peak_tflops(kind, "float32")
+
+
+def peak_tflops(kind: str, compute_dtype: str) -> Optional[float]:
+    """The card's dense peak TF/s for compute_dtype ("float32" or
+    "bfloat16"), or None for a card (or dtype) the tables do not hold."""
+    table = {"float32": PEAK_FP32_TFLOPS,
+             "bfloat16": PEAK_BF16_TFLOPS}.get(compute_dtype, ())
     low = kind.lower()
-    return next((p for key, p in PEAK_FP32_TFLOPS if key in low), None)
+    return next((p for key, p in table if key in low), None)
 
 
 def card_line() -> Optional[str]:
@@ -182,9 +199,10 @@ def weights_fields(cfg: Config, nets: torch.nn.Module) -> Dict[str, str]:
 
 def result_line(metric: str, unit: str, per_step: int, baseline: float,
                 t: Dict[str, float], flops: float, dev: torch.device,
+                compute_dtype: str = "float32",
                 **extra) -> Dict[str, object]:
     """The JSON line: `per_step` samples (or frames) a step, the rate from
-    the median step."""
+    the median step, MFU against the peak of compute_dtype."""
     value = per_step / (t["median"] / 1e3)
     out = {"metric": metric, "value": value, "unit": unit,
            "vs_baseline": value / baseline,
@@ -195,9 +213,11 @@ def result_line(metric: str, unit: str, per_step: int, baseline: float,
             else "cpu")
     out["device_kind"] = kind
     out["card"] = card_line() if dev.type == "cuda" else None
-    peak = peak_fp32_tflops(kind)
+    out["compute_dtype"] = compute_dtype
+    peak = peak_tflops(kind, compute_dtype)
     if peak:
-        out["peak_tflops_fp32"] = peak
+        out["peak_tflops_" + ("bf16" if compute_dtype == "bfloat16"
+                              else "fp32")] = peak
         out["mfu"] = out["tflops"] / peak
     out["mfu_note"] = MFU_NOTE
     out.update(extra)
@@ -226,7 +246,8 @@ def bench_inference(base, metric, dev, args, num_layers=18):
 
     t = time_trials(forward, dev, args.trials)
     return result_line(metric, "fps", 1, REALTIME_FPS, t,
-                       count_flops(forward), dev, **weights_fields(cfg, nets))
+                       count_flops(forward), dev, cfg.compute_dtype,
+                       **weights_fields(cfg, nets))
 
 
 def bench_train(base, dev, args):
@@ -252,7 +273,7 @@ def bench_train(base, dev, args):
     return result_line(
         f"train_samples_per_sec_r{cfg.num_layers}_{cfg.width}x{cfg.height}"
         f"_b{B}", "samples/s", B, A100_BASELINE_SAMPLES_PER_SEC, t, flops,
-        dev, **weights_fields(cfg, trainer.nets))
+        dev, cfg.compute_dtype, **weights_fields(cfg, trainer.nets))
 
 
 def bench_refiner(base, dev, args):
@@ -354,7 +375,8 @@ def bench_host_fed(base, dev, args, n_frames=14):
     return result_line(
         f"hostfed_train_samples_per_sec_r{cfg.num_layers}_{cfg.width}x"
         f"{cfg.height}_b{B}", "samples/s", B, A100_BASELINE_SAMPLES_PER_SEC,
-        t, flops, dev, steps_per_epoch=steps, num_workers=cfg.num_workers)
+        t, flops, dev, cfg.compute_dtype, steps_per_epoch=steps,
+        num_workers=cfg.num_workers)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -379,7 +401,7 @@ def run(args: argparse.Namespace) -> Dict[str, object]:
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    base = dict(compute_dtype="float32", **parse_set(args.set))
+    base = {"compute_dtype": "float32", **parse_set(args.set)}
     with contextlib.redirect_stdout(sys.stderr):
         if args.config == 1:
             return bench_inference(base, "forward_fps_r18_640x192_b1", dev,

@@ -73,6 +73,13 @@ SIGNATURES = {
     # pts, N, k, part_d, part_i, out, stream
     "fd_knn": (_P, _I, _I, _P, _P, _P, _P),
 }
+# the bfloat16 entry points: the same arguments, bf16 tensors (the conv's
+# bias and scratch and the warp's coordinates and their gradients stay
+# float32; csrc/*.cu)
+SIGNATURES.update({name + "_bf16": SIGNATURES[name] for name in (
+    "fd_maxpool3x3s2_fwd", "fd_maxpool3x3s2_bwd", "fd_conv3x3_reflect_fwd",
+    "fd_conv3x3_zero_act_fwd", "fd_conv3x3_dgrad", "fd_conv3x3_wgrad",
+    "fd_warp_fwd", "fd_warp_bwd", "fd_reproj_fwd", "fd_reproj_bwd")})
 
 
 def find_nvcc() -> str:

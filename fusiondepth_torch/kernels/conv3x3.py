@@ -25,6 +25,18 @@ products (each operand split into two TF32 parts, three products per
 multiply-add, fp32 accumulation: fp32-accurate; see the note at the top of
 the source). `conv_tiles` picks their tiles per call, and `tf32_round` is
 their TF32 rounding in tensor ops, for the tests.
+
+bfloat16 (compute_dtype="bfloat16"): each kernel has a bf16 entry point,
+taken when the data tensor is bf16, as the Pallas kernel takes bf16
+operands (pallas_fold_conv.py:279-323, :511-575). Every tensor is bf16 but
+the reflect conv's bias, which stays float32; a bf16 value is exact in
+TF32, so one TF32 product per multiply-add, float32 sums. The forward
+adds the bias, applies ELU in float32 and rounds once; the ELU derivative
+is taken on the widened cotangent and output and rounded to bf16 before
+the dgrad and wgrad (:511-539); the dgrad, dx and dW come out bf16. The
+plain versions compute the same in float32 from the bf16 inputs, with the
+act prologue's product and sum each rounded to bf16 as the bf16 tensor
+ops round them, and round once at the output.
 """
 
 from __future__ import annotations
@@ -35,8 +47,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from fusiondepth_torch.kernels import LAUNCHES, build, check_cuda_f32, \
-    on_card
+from fusiondepth_torch.kernels import LAUNCHES, build, check_cuda, \
+    entry_dtype, entry_point, launch_key, on_card, wide
 from fusiondepth_torch.ops.padding import reflect_pad_hw
 
 
@@ -122,18 +134,26 @@ def _concat(x0, x1):
     return x0 if x1 is None else torch.cat([x0, x1], 1)
 
 
+def _act(x, scale, shift):
+    """relu(x * scale + shift) per channel, in x's dtype."""
+    return torch.relu(x * scale[:, None, None] + shift[:, None, None])
+
+
 def conv3x3_reflect_plain(x0, weight, bias, x1=None, elu: bool = True):
-    """Plain version: ReflectionPad2d(1) over cat([x0, x1]), conv, ELU."""
-    y = F.conv2d(reflect_pad_hw(_concat(x0, x1), 1), weight, bias)
-    return F.elu(y) if elu else y
+    """Plain version: ReflectionPad2d(1) over cat([x0, x1]), conv, ELU
+    (in float32 for bf16 inputs, rounded once to their dtype)."""
+    y = F.conv2d(reflect_pad_hw(wide(_concat(x0, x1)), 1), wide(weight),
+                 wide(bias))
+    return (F.elu(y) if elu else y).to(x0.dtype)
 
 
 def conv3x3_zero_act_plain(x, weight, scale=None, shift=None):
     """Plain version: conv3x3(relu(x * scale + shift), zero pad 1), or
-    conv3x3(x) without scale/shift."""
+    conv3x3(x) without scale/shift (the act in x's dtype, the conv in
+    float32 for bf16, rounded once)."""
     if scale is not None:
-        x = torch.relu(x * scale[:, None, None] + shift[:, None, None])
-    return F.conv2d(x, weight, padding=1)
+        x = _act(x, scale, shift)
+    return F.conv2d(wide(x), wide(weight), padding=1).to(x.dtype)
 
 
 def reflect_pad_adjoint(gp: torch.Tensor) -> torch.Tensor:
@@ -156,16 +176,19 @@ def _split(dx, C0):
 def conv3x3_dgrad_plain(g, weight, C0: int, reflect: bool):
     """Plain version of the dgrad kernel: (dx0, dx1) of the conv with
     `weight` (Co, C0 + C1, 3, 3) from its cotangent g (B, Co, H, W), split
-    at input channel C0 (dx1 is None when C1 is 0)."""
+    at input channel C0 (dx1 is None when C1 is 0); in float32 for bf16,
+    rounded once."""
     if reflect:
-        return _split(reflect_pad_adjoint(F.conv_transpose2d(g, weight)), C0)
-    return _split(F.conv_transpose2d(g, weight, padding=1), C0)
+        dx = reflect_pad_adjoint(F.conv_transpose2d(wide(g), wide(weight)))
+    else:
+        dx = F.conv_transpose2d(wide(g), wide(weight), padding=1)
+    return _split(dx.to(g.dtype), C0)
 
 
 def _padded_input(x0, x1, reflect, scale, shift):
     x = _concat(x0, x1)
     if scale is not None:
-        x = torch.relu(x * scale[:, None, None] + shift[:, None, None])
+        x = _act(x, scale, shift)
     return reflect_pad_hw(x, 1) if reflect else F.pad(x, (1, 1, 1, 1))
 
 
@@ -175,7 +198,8 @@ def conv3x3_wgrad_plain(g, x0, x1, reflect: bool, scale=None, shift=None):
     in-bounds taps when given, the zero pad staying 0), from g."""
     xp = _padded_input(x0, x1, reflect, scale, shift)
     Ci = xp.shape[1]
-    return torch.nn.grad.conv2d_weight(xp, (g.shape[1], Ci, 3, 3), g)
+    return torch.nn.grad.conv2d_weight(wide(xp), (g.shape[1], Ci, 3, 3),
+                                       wide(g)).to(g.dtype)
 
 
 def _check_shapes(name, x0, x1, weight, min_hw):
@@ -203,22 +227,25 @@ def conv3x3_reflect_fwd(x0: torch.Tensor, weight: torch.Tensor,
     """Reflect-pad 3x3 conv over the channel concat of x0 (B, C0, H, W) and
     optional x1 (B, C1, H, W), weight (Co, C0 + C1, 3, 3), bias (Co,),
     ELU when `elu`. CPU tensors take the plain version; CUDA tensors take
-    the kernel (float32, contiguous), which never builds the concat."""
+    the kernel (float32, or bfloat16 with a float32 bias; contiguous),
+    which never builds the concat."""
     if x0.device.type == "cpu":
         return conv3x3_reflect_plain(x0, weight, bias, x1, elu)
     name = "conv3x3_reflect"
-    check_cuda_f32(name, x0=x0, x1=x1, weight=weight, bias=bias)
+    dt = entry_dtype(name, x0)
+    check_cuda(name, dt, x0=x0, x1=x1, weight=weight,
+               bias=(bias, torch.float32))
     B, C0, C1, H, W, Co = _check_shapes(name, x0, x1, weight, min_hw=2)
     if bias.shape != (Co,):
         raise ValueError(f"{name}: bias {tuple(bias.shape)}, expected ({Co},)")
-    y = torch.empty((B, Co, H, W), device=x0.device, dtype=torch.float32)
+    y = torch.empty((B, Co, H, W), device=x0.device, dtype=dt)
     with on_card(x0) as stream:
-        build.check(build.load().fd_conv3x3_reflect_fwd(
+        build.check(entry_point("fd_conv3x3_reflect_fwd", dt)(
             x0.data_ptr(), C0, None if x1 is None else x1.data_ptr(), C1,
             weight.data_ptr(), bias.data_ptr(), y.data_ptr(), B, H, W, Co,
             int(elu), n_tile(B, H, W, Co), stream),
             "fd_conv3x3_reflect_fwd")
-    LAUNCHES[name] += 1
+    LAUNCHES[launch_key(name, dt)] += 1
     return y
 
 
@@ -229,26 +256,27 @@ def conv3x3_zero_act_fwd(x: torch.Tensor, weight: torch.Tensor,
     """Zero-pad bias-free 3x3 conv of x (B, C, H, W) with weight
     (Co, C, 3, 3); with scale/shift (C,), of relu(x * scale + shift) with
     the pad still 0. CPU tensors take the plain version; CUDA tensors take
-    the kernel (float32, contiguous)."""
+    the kernel (every tensor float32, or every one bfloat16; contiguous)."""
     if (scale is None) != (shift is None):
         raise ValueError("conv3x3_zero_act: give both scale and shift or "
                          "neither")
     if x.device.type == "cpu":
         return conv3x3_zero_act_plain(x, weight, scale, shift)
     name = "conv3x3_zero_act"
-    check_cuda_f32(name, x=x, weight=weight, scale=scale, shift=shift)
+    dt = entry_dtype(name, x)
+    check_cuda(name, dt, x=x, weight=weight, scale=scale, shift=shift)
     B, C, _, H, W, Co = _check_shapes(name, x, None, weight, min_hw=1)
     if scale is not None and (scale.shape != (C,) or shift.shape != (C,)):
         raise ValueError(f"{name}: scale/shift must be ({C},)")
-    y = torch.empty((B, Co, H, W), device=x.device, dtype=torch.float32)
+    y = torch.empty((B, Co, H, W), device=x.device, dtype=dt)
     with on_card(x) as stream:
-        build.check(build.load().fd_conv3x3_zero_act_fwd(
+        build.check(entry_point("fd_conv3x3_zero_act_fwd", dt)(
             x.data_ptr(), C, weight.data_ptr(),
             None if scale is None else scale.data_ptr(),
             None if shift is None else shift.data_ptr(),
             y.data_ptr(), B, H, W, Co, n_tile(B, H, W, Co), stream),
             "fd_conv3x3_zero_act_fwd")
-    LAUNCHES[name] += 1
+    LAUNCHES[launch_key(name, dt)] += 1
     return y
 
 
@@ -257,11 +285,13 @@ def conv3x3_dgrad(g: torch.Tensor, weight: torch.Tensor, C0: int,
     """(dx0, dx1): d(input) of a 3x3 conv with `weight` (Co, C0 + C1, 3, 3)
     from the cotangent g (B, Co, H, W), split at input channel C0 (dx1 is
     None when C1 is 0); reflect or zero pad. CPU tensors take the plain
-    version; CUDA tensors take the kernel (float32, contiguous)."""
+    version; CUDA tensors take the kernel (float32 or bfloat16, contiguous;
+    the reflect pad's padded-domain scratch is float32 either way)."""
     if g.device.type == "cpu":
         return conv3x3_dgrad_plain(g, weight, C0, reflect)
     name = "conv3x3_dgrad"
-    check_cuda_f32(name, g=g, weight=weight)
+    dt = entry_dtype(name, g)
+    check_cuda(name, dt, g=g, weight=weight)
     if g.dim() != 4 or 0 in g.shape or weight.shape[0] != g.shape[1] \
             or weight.shape[2:] != (3, 3) or not 0 < C0 <= weight.shape[1]:
         raise ValueError(f"{name}: g {tuple(g.shape)}, weight "
@@ -273,19 +303,19 @@ def conv3x3_dgrad(g: torch.Tensor, weight: torch.Tensor, C0: int,
     if not reflect and C1:
         raise ValueError(f"{name}: the zero-pad conv has one input")
     wt = weight.flip(2, 3).transpose(0, 1).contiguous()
-    opts = dict(device=g.device, dtype=torch.float32)
+    opts = dict(device=g.device, dtype=dt)
     dx0 = torch.empty((B, C0, H, W), **opts)
     dx1 = torch.empty((B, C1, H, W), **opts) if C1 else None
-    dxp = torch.empty((B, C0 + C1, H + 2, W + 2), **opts) if reflect \
-        else None
+    dxp = torch.empty((B, C0 + C1, H + 2, W + 2), device=g.device,
+                      dtype=torch.float32) if reflect else None
     with on_card(g) as stream:
-        build.check(build.load().fd_conv3x3_dgrad(
+        build.check(entry_point("fd_conv3x3_dgrad", dt)(
             g.data_ptr(), Co, wt.data_ptr(),
             None if dxp is None else dxp.data_ptr(), dx0.data_ptr(), C0,
             None if dx1 is None else dx1.data_ptr(), C1, B, H, W,
             int(reflect), conv_tiles(B, H, W, C0 + C1, Co, reflect).dgrad_n,
             stream), "fd_conv3x3_dgrad")
-    LAUNCHES[name] += 1
+    LAUNCHES[launch_key(name, dt)] += 1
     return dx0, dx1
 
 
@@ -297,7 +327,8 @@ def conv3x3_wgrad(g: torch.Tensor, x0: torch.Tensor,
     virtual concat of x0 and x1 (with scale/shift: relu(x0 * scale + shift)
     on in-bounds taps, zero pad only), from its cotangent g (B, Co, H, W).
     CPU tensors take the plain version; CUDA tensors take the kernel
-    (float32, contiguous)."""
+    (float32 or bfloat16, contiguous; dW in that dtype, its split partial
+    sums float32)."""
     if (scale is None) != (shift is None) or (scale is not None and
                                               (reflect or x1 is not None)):
         raise ValueError("conv3x3_wgrad: scale and shift come together, "
@@ -305,7 +336,8 @@ def conv3x3_wgrad(g: torch.Tensor, x0: torch.Tensor,
     if x0.device.type == "cpu":
         return conv3x3_wgrad_plain(g, x0, x1, reflect, scale, shift)
     name = "conv3x3_wgrad"
-    check_cuda_f32(name, g=g, x0=x0, x1=x1, scale=scale, shift=shift)
+    dt = entry_dtype(name, g)
+    check_cuda(name, dt, g=g, x0=x0, x1=x1, scale=scale, shift=shift)
     B, C0, H, W = x0.shape
     C1 = 0 if x1 is None else x1.shape[1]
     if g.dim() != 4 or g.shape[0] != B or g.shape[2:] != x0.shape[2:] or (
@@ -321,16 +353,16 @@ def conv3x3_wgrad(g: torch.Tensor, x0: torch.Tensor,
     tiles = conv_tiles(B, H, W, Ci, Co, reflect)
     part = torch.empty((tiles.wgrad_splits, Co, Ci, 9), device=g.device,
                        dtype=torch.float32)
-    dw = torch.empty((Co, Ci, 3, 3), device=g.device, dtype=torch.float32)
+    dw = torch.empty((Co, Ci, 3, 3), device=g.device, dtype=dt)
     with on_card(g) as stream:
-        build.check(build.load().fd_conv3x3_wgrad(
+        build.check(entry_point("fd_conv3x3_wgrad", dt)(
             g.data_ptr(), Co, x0.data_ptr(), C0,
             None if x1 is None else x1.data_ptr(), C1,
             None if scale is None else scale.data_ptr(),
             None if shift is None else shift.data_ptr(), part.data_ptr(),
             dw.data_ptr(), B, H, W, int(reflect), tiles.wgrad_mw,
             tiles.wgrad_splits, stream), "fd_conv3x3_wgrad")
-    LAUNCHES[name] += 1
+    LAUNCHES[launch_key(name, dt)] += 1
     return dw
 
 
@@ -340,14 +372,17 @@ class _ConvReflect(torch.autograd.Function):
         y = conv3x3_reflect_fwd(x0, weight, bias, x1, elu)
         ctx.save_for_backward(x0, x1, weight, y if elu else None)
         ctx.elu = elu
+        ctx.bias_dtype = bias.dtype
         return y
 
     @staticmethod
     def backward(ctx, g):
         x0, x1, weight, y = ctx.saved_tensors
-        g = g.contiguous()
+        gw = wide(g)
         if ctx.elu:  # ELU'(z) = 1 for z > 0, else exp(z) = y + 1
-            g = g * torch.where(y > 0, 1.0, y + 1.0)
+            gw = gw * torch.where(y > 0, 1.0, wide(y) + 1.0)
+        # the conv's cotangent in the operands' dtype (bf16: rounded once)
+        g = gw.to(x0.dtype).contiguous()
         need_x0, need_x1, need_w, need_b, _ = ctx.needs_input_grad
         dx0 = dx1 = dw = db = None
         if need_x0 or need_x1:
@@ -355,7 +390,7 @@ class _ConvReflect(torch.autograd.Function):
         if need_w:
             dw = conv3x3_wgrad(g, x0, x1, reflect=True)
         if need_b:
-            db = g.sum((0, 2, 3))
+            db = gw.sum((0, 2, 3)).to(ctx.bias_dtype)
         return dx0, dx1, dw, db, None
 
 

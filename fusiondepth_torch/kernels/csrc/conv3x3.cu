@@ -110,10 +110,35 @@
 // the TF32 rate that wgmma does (scripts/mma_tf32_rate.cu measures its
 // ceiling), and the splits, the staging's address arithmetic and the
 // flushed sums take issue slots beside the MMAs.
+//
+// bfloat16 (compute_dtype="bfloat16"; the _bf16 entry points): the same
+// two kernels, instantiated on bf16 operands (pallas_fold_conv.py:279-323
+// and :511-575). A bf16 value is exact in TF32 and the product of two is
+// exact in fp32, so one TF32 product per multiply-add computes what the
+// Pallas kernel's bf16 MXU pass with preferred_element_type=f32 computes:
+// no 3xTF32 split, a third of the products. Each tap's (forward) or pixel
+// tile's (wgrad) sum still starts from 0 and joins the fp32 accumulator
+// with an fp32 add. The bf16 operands cannot go through cp.async one
+// 2-byte element at a time, so each thread loads them, widens them to
+// float32 and stores them into the same shared-memory tiles (no overlap
+// of the next chunk's loads with this one's MMAs: the simple kernel). The
+// act prologue rounds as the bf16 tensor ops of the plain version do (the
+// product to bf16, then the sum to bf16; pallas_fold_conv.py:598 casts the
+// scale and shift to bf16). Outputs, as the Pallas kernel writes them: the
+// forward adds the float32 bias, applies ELU in float32 and rounds once to
+// bf16; the zero-pad dgrad rounds its output to bf16 (:627); the reflect
+// dgrad writes its padded-domain sums in float32 (:539) and the pad
+// adjoint rounds the folded result to bf16 (:564); the wgrad sums its
+// float32 partials and rounds dW to bf16, the dtype of the weight operand
+// it is the gradient of (:572).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "dtype.cuh"
 
 namespace {
 
@@ -195,14 +220,20 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+template <typename T>
+__host__ __device__ constexpr bool is_f32() {
+  return std::is_same<T, float>::value;
+}
+
 // The input of a conv as the kernels read it: the virtual concat of x0
 // (C0 channels) and x1 (C1), reflect- or zero-padded, optionally through
 // relu(x * scale + shift) (x0 only; the wrapper refuses it with x1).
+template <typename T>
 struct Input {
-  const float* x0;
-  const float* x1;
-  const float* scale;
-  const float* shift;
+  const T* x0;
+  const T* x1;
+  const T* scale;
+  const T* shift;
   int C0, C1, H, W;
   int reflect;
 };
@@ -210,8 +241,9 @@ struct Input {
 // Address of the padded input's (c, h, w) in image b; null when that tap
 // is padding (zero pad, channel tail, or beyond a reflected edge, which
 // only feeds outputs that are not stored).
-__device__ __forceinline__ const float* halo_src(const Input& in, long long b,
-                                                 int c, int h, int w) {
+template <typename T>
+__device__ __forceinline__ const T* halo_src(const Input<T>& in, long long b,
+                                             int c, int h, int w) {
   if (in.reflect) {
     h = h < 0 ? -h : (h >= in.H ? 2 * in.H - 2 - h : h);
     w = w < 0 ? -w : (w >= in.W ? 2 * in.W - 2 - w : w);
@@ -219,16 +251,16 @@ __device__ __forceinline__ const float* halo_src(const Input& in, long long b,
   if (c >= in.C0 + in.C1 || h < 0 || h >= in.H || w < 0 || w >= in.W)
     return nullptr;
   const long long HW = (long long)in.H * in.W;
-  const float* plane = c < in.C0 ? in.x0 + (b * in.C0 + c) * HW
-                                 : in.x1 + (b * in.C1 + (c - in.C0)) * HW;
+  const T* plane = c < in.C0 ? in.x0 + (b * in.C0 + c) * HW
+                             : in.x1 + (b * in.C1 + (c - in.C0)) * HW;
   return plane + (long long)h * in.W + w;
 }
 
 // Issue the copies of the (NCH, HH, HALO_W) halo of channels c0.. into
 // xs (channel planes CS floats apart); halo row 0 is input row h0, column
-// 0 input column w0.
-template <int NCH, int CS, int HH, int NTHR>
-__device__ __forceinline__ void stage_halo(float* xs, const Input& in,
+// 0 input column w0. bf16: loaded, widened and stored by the thread.
+template <typename T, int NCH, int CS, int HH, int NTHR>
+__device__ __forceinline__ void stage_halo(float* xs, const Input<T>& in,
                                            long long b, int c0, int h0,
                                            int w0) {
   for (int e = threadIdx.x; e < NCH * HH * HALO_W; e += NTHR) {
@@ -236,8 +268,11 @@ __device__ __forceinline__ void stage_halo(float* xs, const Input& in,
     const int pos = e - ci * (HH * HALO_W);
     const int r = pos / HALO_W;
     const int q = pos - r * HALO_W;
-    const float* src = halo_src(in, b, c0 + ci, h0 + r, w0 + q);
-    cp_async4(xs + ci * CS + pos, src ? src : in.x0, src != nullptr);
+    const T* src = halo_src(in, b, c0 + ci, h0 + r, w0 + q);
+    if constexpr (is_f32<T>())
+      cp_async4(xs + ci * CS + pos, src ? src : in.x0, src != nullptr);
+    else
+      xs[ci * CS + pos] = src ? ldg_f(src) : 0.f;
   }
 }
 
@@ -245,11 +280,13 @@ __device__ __forceinline__ void stage_halo(float* xs, const Input& in,
 // the values it copied, relu(x * s + t) on in-bounds taps (rounded as the
 // plain version rounds it, a product, then a sum; padding stays 0), then
 // the split, big in place, small into the plane `small`. Each value is
-// split once here, not at each of its 9 uses.
-template <int NCH, int CS, int HH, int NTHR>
+// split once here, not at each of its 9 uses. bf16: the product and the
+// sum each rounded to bf16, and no split (the value is exact in TF32).
+template <typename T, int NCH, int CS, int HH, int NTHR>
 __device__ __forceinline__ void split_halo(float* big, float* small,
-                                           const Input& in, long long b,
+                                           const Input<T>& in, long long b,
                                            int c0, int h0, int w0) {
+  if (!is_f32<T>() && !in.scale) return;
   for (int e = threadIdx.x; e < NCH * HH * HALO_W; e += NTHR) {
     const int ci = e / (HH * HALO_W);
     const int pos = e - ci * (HH * HALO_W);
@@ -258,14 +295,25 @@ __device__ __forceinline__ void split_halo(float* big, float* small,
       const int r = pos / HALO_W;
       const int c = c0 + ci;
       if (halo_src(in, b, c, h0 + r, w0 + pos - r * HALO_W)) {
-        v = __fadd_rn(__fmul_rn(v, __ldg(in.scale + c)), __ldg(in.shift + c));
+        if constexpr (is_f32<T>()) {
+          v = __fadd_rn(__fmul_rn(v, __ldg(in.scale + c)),
+                        __ldg(in.shift + c));
+        } else {
+          v = round_bf16(__fadd_rn(round_bf16(__fmul_rn(v,
+                                                        ldg_f(in.scale + c))),
+                                   ldg_f(in.shift + c)));
+        }
         v = v > 0.f ? v : 0.f;
       }
     }
-    uint32_t hi, lo;
-    split3(v, hi, lo);
-    big[ci * CS + pos] = __uint_as_float(hi);
-    small[ci * CS + pos] = __uint_as_float(lo);
+    if constexpr (is_f32<T>()) {
+      uint32_t hi, lo;
+      split3(v, hi, lo);
+      big[ci * CS + pos] = __uint_as_float(hi);
+      small[ci * CS + pos] = __uint_as_float(lo);
+    } else {
+      big[ci * CS + pos] = v;
+    }
   }
 }
 
@@ -286,16 +334,16 @@ struct FwdTile {
 // Output (b, co, oh, ow) of the (B, Co, Ho, Wo) result is the conv at
 // input position (oh - off, ow - off). Block: 8 x 32 output pixels of one
 // image (warp w owns row w) and NT output channels.
-template <int NT>
+template <typename T, typename TO, int NT>
 __global__ void __launch_bounds__(FWD_THREADS, 2)
-conv3x3_fwd_kernel(Input in, const float* __restrict__ w,  // (Co, Ci, 3, 3)
-                   const float* __restrict__ bias,         // (Co,) or null
-                   float* __restrict__ y, int Ho, int Wo, int off, int Co,
+conv3x3_fwd_kernel(Input<T> in, const T* __restrict__ w,  // (Co, Ci, 3, 3)
+                   const float* __restrict__ bias,        // (Co,) or null
+                   TO* __restrict__ y, int Ho, int Wo, int off, int Co,
                    int tiles_w, int elu, int wvec) {
-  using T = FwdTile<NT>;
+  using Tl = FwdTile<NT>;
   extern __shared__ float smem[];
-  float* const xs0 = smem;            // + buf * XS
-  float* const ws0 = smem + 2 * T::XS;  // + buf * WS
+  float* const xs0 = smem;             // + buf * XS
+  float* const ws0 = smem + 2 * Tl::XS;  // + buf * WS
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -311,11 +359,22 @@ conv3x3_fwd_kernel(Input in, const float* __restrict__ w,  // (Co, Ci, 3, 3)
   const int chunks = (Ci + CI_T - 1) / CI_T;
 
   auto stage = [&](int k, int buf) {
-    stage_halo<CI_T, FWD_CS, FWD_HALO_H, FWD_THREADS>(xs0 + buf * T::XS, in,
-                                                      b, k * CI_T, h0, w0);
+    stage_halo<T, CI_T, FWD_CS, FWD_HALO_H, FWD_THREADS>(
+        xs0 + buf * Tl::XS, in, b, k * CI_T, h0, w0);
     // w[co][c][tap] of the chunk, 72 contiguous floats per co ->
     // ws[n][ci * 9 + tap]
-    float* ws = ws0 + buf * T::WS;
+    float* ws = ws0 + buf * Tl::WS;
+    if constexpr (!is_f32<T>()) {
+      for (int e = threadIdx.x; e < NT * CI_T * 9; e += FWD_THREADS) {
+        const int n = e / (CI_T * 9);
+        const int rem = e - n * (CI_T * 9);
+        const int co = co0 + n;
+        const bool ok = co < Co && k * CI_T + rem / 9 < Ci;
+        ws[n * FWD_WS + rem] =
+            ok ? ldg_f(w + ((long long)co * Ci + k * CI_T) * 9 + rem) : 0.f;
+      }
+      return;
+    }
     if (wvec) {  // 16-byte copies: Ci % 4 == 0, so a group is in or out
       for (int e = threadIdx.x; e < NT * CI_T * 9 / 4; e += FWD_THREADS) {
         const int n = e / (CI_T * 9 / 4);
@@ -323,7 +382,10 @@ conv3x3_fwd_kernel(Input in, const float* __restrict__ w,  // (Co, Ci, 3, 3)
         const int co = co0 + n;
         const bool ok = co < Co && k * CI_T + rem / 9 < Ci;
         cp_async16(ws + n * FWD_WS + rem,
-                   ok ? w + ((long long)co * Ci + k * CI_T) * 9 + rem : w, ok);
+                   ok ? (const float*)w + ((long long)co * Ci + k * CI_T) * 9 +
+                            rem
+                      : (const float*)w,
+                   ok);
       }
     } else {
       for (int e = threadIdx.x; e < NT * CI_T * 9; e += FWD_THREADS) {
@@ -332,7 +394,10 @@ conv3x3_fwd_kernel(Input in, const float* __restrict__ w,  // (Co, Ci, 3, 3)
         const int co = co0 + n;
         const bool ok = co < Co && k * CI_T + rem / 9 < Ci;
         cp_async4(ws + n * FWD_WS + rem,
-                  ok ? w + ((long long)co * Ci + k * CI_T) * 9 + rem : w, ok);
+                  ok ? (const float*)w + ((long long)co * Ci + k * CI_T) * 9 +
+                           rem
+                     : (const float*)w,
+                  ok);
       }
     }
     cp_async_commit();
@@ -355,13 +420,13 @@ conv3x3_fwd_kernel(Input in, const float* __restrict__ w,  // (Co, Ci, 3, 3)
     } else {
       cp_async_wait<0>();
     }
-    float* const xs = xs0 + buf * T::XS;
-    split_halo<CI_T, FWD_CS, FWD_HALO_H, FWD_THREADS>(xs, xs + CI_T * FWD_CS,
-                                                      in, b, k * CI_T, h0, w0);
+    float* const xs = xs0 + buf * Tl::XS;
+    split_halo<T, CI_T, FWD_CS, FWD_HALO_H, FWD_THREADS>(
+        xs, xs + CI_T * FWD_CS, in, b, k * CI_T, h0, w0);
     __syncthreads();
 
     const float* xw = xs + warp * HALO_W + gq;  // big; small CI_T planes on
-    const float* wsb = ws0 + buf * T::WS + gq * FWD_WS + t * 9;
+    const float* wsb = ws0 + buf * Tl::WS + gq * FWD_WS + t * 9;
 #pragma unroll
     for (int tap = 0; tap < 9; ++tap) {
       const int ky = tap / 3, kx = tap % 3;
@@ -375,16 +440,31 @@ conv3x3_fwd_kernel(Input in, const float* __restrict__ w,  // (Co, Ci, 3, 3)
         ab[m][1] = __float_as_uint(p[8]);
         ab[m][2] = __float_as_uint(p[4 * FWD_CS]);
         ab[m][3] = __float_as_uint(p[4 * FWD_CS + 8]);
-        as[m][0] = __float_as_uint(ps[0]);
-        as[m][1] = __float_as_uint(ps[8]);
-        as[m][2] = __float_as_uint(ps[4 * FWD_CS]);
-        as[m][3] = __float_as_uint(ps[4 * FWD_CS + 8]);
+        if constexpr (is_f32<T>()) {
+          as[m][0] = __float_as_uint(ps[0]);
+          as[m][1] = __float_as_uint(ps[8]);
+          as[m][2] = __float_as_uint(ps[4 * FWD_CS]);
+          as[m][3] = __float_as_uint(ps[4 * FWD_CS + 8]);
+        }
       }
 #pragma unroll
       for (int n = 0; n < NT / 8; ++n) {
         // B (8 channels x 8 outputs): rows t, t + 4; column gq
         uint32_t bb[2], bs[2];
         const float* p = wsb + n * 8 * FWD_WS + tap;
+        if constexpr (!is_f32<T>()) {
+          // bf16 operands: one exact TF32 product, its sum from 0
+          bb[0] = __float_as_uint(p[0]);
+          bb[1] = __float_as_uint(p[4 * 9]);
+#pragma unroll
+          for (int m = 0; m < 2; ++m) {
+            float d[4];
+            mma_tf32_zero(d, ab[m], bb);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[m][n][i] += d[i];
+          }
+          continue;
+        }
         split3(p[0], bb[0], bs[0]);
         split3(p[4 * 9], bb[1], bs[1]);
         // the tap's three products of a tile start from 0 and join acc by
@@ -421,13 +501,13 @@ conv3x3_fwd_kernel(Input in, const float* __restrict__ w,  // (Co, Ci, 3, 3)
           float v = acc[m][n][i];
           if (bias) v += __ldg(bias + co);
           if (elu) v = v > 0.f ? v : expm1f(v);
-          y[(b * Co + co) * HWo + (long long)oh * Wo + ow] = v;
+          st_f(y + (b * Co + co) * HWo + (long long)oh * Wo + ow, v);
         }
       }
 }
 
-template <int NT>
-int launch_fwd(const Input& in, const float* w, const float* bias, float* y,
+template <typename T, typename TO, int NT>
+int launch_fwd(const Input<T>& in, const T* w, const float* bias, TO* y,
                int B, int off, int Co, int elu, cudaStream_t s) {
   const int Ho = in.H + 2 * off;
   const int Wo = in.W + 2 * off;
@@ -435,28 +515,29 @@ int launch_fwd(const Input& in, const float* w, const float* bias, float* y,
   const int tiles = tiles_w * ((Ho + FWD_TH - 1) / FWD_TH);
   constexpr int bytes = FwdTile<NT>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      conv3x3_fwd_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      conv3x3_fwd_kernel<T, TO, NT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(tiles, (Co + NT - 1) / NT, B);
   // 16-byte copies of the weights when every row of 9 Ci floats is
   // 16-byte aligned
   const int wvec = (in.C0 + in.C1) % 4 == 0 && (uintptr_t)w % 16 == 0;
-  conv3x3_fwd_kernel<NT><<<grid, FWD_THREADS, bytes, s>>>(
+  conv3x3_fwd_kernel<T, TO, NT><<<grid, FWD_THREADS, bytes, s>>>(
       in, w, bias, y, Ho, Wo, off, Co, tiles_w, elu, wvec);
   return (int)cudaGetLastError();
 }
 
 // Output (B, Co, H + 2 off, W + 2 off); off = 1 only with zero pad. nt: the
 // N tile, from kernels/conv3x3.py::conv_tiles.
-int run_fwd(const Input& in, const float* w, const float* bias, float* y,
-            int B, int off, int Co, int elu, int nt, void* stream) {
+template <typename T, typename TO>
+int run_fwd(const Input<T>& in, const T* w, const float* bias, TO* y, int B,
+            int off, int Co, int elu, int nt, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch (nt) {
-    case 8: return launch_fwd<8>(in, w, bias, y, B, off, Co, elu, s);
-    case 16: return launch_fwd<16>(in, w, bias, y, B, off, Co, elu, s);
-    case 32: return launch_fwd<32>(in, w, bias, y, B, off, Co, elu, s);
-    case 64: return launch_fwd<64>(in, w, bias, y, B, off, Co, elu, s);
+    case 8: return launch_fwd<T, TO, 8>(in, w, bias, y, B, off, Co, elu, s);
+    case 16: return launch_fwd<T, TO, 16>(in, w, bias, y, B, off, Co, elu, s);
+    case 32: return launch_fwd<T, TO, 32>(in, w, bias, y, B, off, Co, elu, s);
+    case 64: return launch_fwd<T, TO, 64>(in, w, bias, y, B, off, Co, elu, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -464,10 +545,12 @@ int run_fwd(const Input& in, const float* w, const float* bias, float* y,
 // Adjoint of ReflectionPad2d(1) with the channel split: dxp (B, C0 + C1,
 // H + 2, W + 2) over padded positions -1..H, -1..W -> dx0 (B, C0, H, W),
 // dx1 (B, C1, H, W). Additions in the order of the plain version
-// (kernels/conv3x3.py::reflect_pad_adjoint): rows, then columns.
+// (kernels/conv3x3.py::reflect_pad_adjoint): rows, then columns. The sums
+// are float32; a bf16 dx is rounded once, as it is stored.
+template <typename TO>
 __global__ void reflect_fold_kernel(const float* __restrict__ dxp,
-                                    float* __restrict__ dx0, int C0,
-                                    float* __restrict__ dx1, int C1, int H,
+                                    TO* __restrict__ dx0, int C0,
+                                    TO* __restrict__ dx1, int C1, int H,
                                     int W, long long total) {
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= total) return;
@@ -492,9 +575,9 @@ __global__ void reflect_fold_kernel(const float* __restrict__ dxp,
   if (w == W - 2) v += row(W + 1);
   const long long HW = (long long)H * W;
   if (c < C0)
-    dx0[(b * C0 + c) * HW + (long long)h * W + w] = v;
+    st_f(dx0 + (b * C0 + c) * HW + (long long)h * W + w, v);
   else
-    dx1[(b * C1 + (c - C0)) * HW + (long long)h * W + w] = v;
+    st_f(dx1 + (b * C1 + (c - C0)) * HW + (long long)h * W + w, v);
 }
 
 // ---- wgrad: M = output channels, N = input channels x 9 taps, K = pixels
@@ -517,26 +600,26 @@ struct WgTile {
 
 // Partial weight gradient of one (CO_T, CI_TW) tile over the run of pixel
 // tiles (2 x 32) of split blockIdx.y.
-template <int MW>
+template <typename T, int MW>
 __global__ void __launch_bounds__(WG_THREADS)
-conv3x3_wgrad_kernel(Input in, const float* __restrict__ g,  // (B, Co, H, W)
+conv3x3_wgrad_kernel(Input<T> in, const T* __restrict__ g,  // (B, Co, H, W)
                      float* __restrict__ part,  // (splits, Co, Ci, 9)
                      int Co, int ci_tiles, int tiles_w, int tiles_img,
                      int n_tiles, int per_split, int vec) {
-  using T = WgTile<MW>;
+  using Tl = WgTile<MW>;
   constexpr int PX = WG_TH * TW;  // pixels per tile
   extern __shared__ float smem[];
   float* const gs0 = smem;              // + buf * GS
-  float* const xs0 = smem + 2 * T::GS;  // + buf * XS
+  float* const xs0 = smem + 2 * Tl::GS;  // + buf * XS
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int gq = lane >> 2;
   const int t = lane & 3;
-  const int wm = warp / T::NWB;
-  const int wn = warp % T::NWB;
-  const int co0 = (blockIdx.x / ci_tiles) * T::CO_T;
-  const int ci0 = (blockIdx.x % ci_tiles) * T::CI_TW;
+  const int wm = warp / Tl::NWB;
+  const int wn = warp % Tl::NWB;
+  const int co0 = (blockIdx.x / ci_tiles) * Tl::CO_T;
+  const int ci0 = (blockIdx.x % ci_tiles) * Tl::CI_TW;
   const int Ci = in.C0 + in.C1;
   const int H = in.H, W = in.W;
   const int split = (int)blockIdx.y;
@@ -553,9 +636,21 @@ conv3x3_wgrad_kernel(Input in, const float* __restrict__ g,  // (B, Co, H, W)
     long long b;
     int oh0, ow0;
     origin(tile, b, oh0, ow0);
-    float* gs = gs0 + buf * T::GS;
-    if (vec) {  // 16-byte copies: W % 4 == 0, so a group is in or out
-      for (int e = threadIdx.x; e < T::CO_T * PX / 4; e += WG_THREADS) {
+    float* gs = gs0 + buf * Tl::GS;
+    if constexpr (!is_f32<T>()) {
+      for (int e = threadIdx.x; e < Tl::CO_T * PX; e += WG_THREADS) {
+        const int k = e / PX;
+        const int p = e - k * PX;
+        const int r = p / TW;
+        const int co = co0 + k;
+        const int h = oh0 + r;
+        const int x = ow0 + p - r * TW;
+        const bool ok = co < Co && h < H && x < W;
+        gs[k * WG_GS + p] =
+            ok ? ldg_f(g + ((b * Co + co) * H + h) * (long long)W + x) : 0.f;
+      }
+    } else if (vec) {  // 16-byte copies: W % 4 == 0, so a group is in or out
+      for (int e = threadIdx.x; e < Tl::CO_T * PX / 4; e += WG_THREADS) {
         const int k = e / (PX / 4);
         const int p = (e - k * (PX / 4)) * 4;
         const int r = p / TW;
@@ -564,11 +659,13 @@ conv3x3_wgrad_kernel(Input in, const float* __restrict__ g,  // (B, Co, H, W)
         const int x = ow0 + p - r * TW;
         const bool ok = co < Co && h < H && x < W;
         cp_async16(gs + k * WG_GS + p,
-                   ok ? g + ((b * Co + co) * H + h) * (long long)W + x : g,
+                   ok ? (const float*)g + ((b * Co + co) * H + h) *
+                                              (long long)W + x
+                      : (const float*)g,
                    ok);
       }
     } else {
-      for (int e = threadIdx.x; e < T::CO_T * PX; e += WG_THREADS) {
+      for (int e = threadIdx.x; e < Tl::CO_T * PX; e += WG_THREADS) {
         const int k = e / PX;
         const int p = e - k * PX;
         const int r = p / TW;
@@ -577,17 +674,20 @@ conv3x3_wgrad_kernel(Input in, const float* __restrict__ g,  // (B, Co, H, W)
         const int x = ow0 + p - r * TW;
         const bool ok = co < Co && h < H && x < W;
         cp_async4(gs + k * WG_GS + p,
-                  ok ? g + ((b * Co + co) * H + h) * (long long)W + x : g, ok);
+                  ok ? (const float*)g + ((b * Co + co) * H + h) *
+                                             (long long)W + x
+                     : (const float*)g,
+                  ok);
       }
     }
-    stage_halo<T::CI_TW, WG_CS, WG_HALO_H, WG_THREADS>(
-        xs0 + buf * T::XS, in, b, ci0, oh0 - 1, ow0 - 1);
+    stage_halo<T, Tl::CI_TW, WG_CS, WG_HALO_H, WG_THREADS>(
+        xs0 + buf * Tl::XS, in, b, ci0, oh0 - 1, ow0 - 1);
     cp_async_commit();
   };
 
-  float acc[T::WMT][9][4];
+  float acc[Tl::WMT][9][4];
 #pragma unroll
-  for (int m = 0; m < T::WMT; ++m)
+  for (int m = 0; m < Tl::WMT; ++m)
 #pragma unroll
     for (int k = 0; k < 9; ++k)
 #pragma unroll
@@ -602,71 +702,89 @@ conv3x3_wgrad_kernel(Input in, const float* __restrict__ g,  // (B, Co, H, W)
     } else {
       cp_async_wait<0>();
     }
-    float* const xs = xs0 + buf * T::XS;
+    float* const xs = xs0 + buf * Tl::XS;
     {
       long long b;
       int oh0, ow0;
       origin(tile, b, oh0, ow0);
-      split_halo<T::CI_TW, WG_CS, WG_HALO_H, WG_THREADS>(
-          xs, xs + T::CI_TW * WG_CS, in, b, ci0, oh0 - 1, ow0 - 1);
+      split_halo<T, Tl::CI_TW, WG_CS, WG_HALO_H, WG_THREADS>(
+          xs, xs + Tl::CI_TW * WG_CS, in, b, ci0, oh0 - 1, ow0 - 1);
     }
     __syncthreads();
 
     // this tile's sums start from 0 and join acc by an fp32 add (see the
     // forward)
-    float part[T::WMT][9][4];
+    float part[Tl::WMT][9][4];
 #pragma unroll
-    for (int m = 0; m < T::WMT; ++m)
+    for (int m = 0; m < Tl::WMT; ++m)
 #pragma unroll
       for (int k = 0; k < 9; ++k)
 #pragma unroll
         for (int i = 0; i < 4; ++i) part[m][k][i] = 0.f;
     // A (16 channels x 8 pixels): rows gq, gq + 8; columns t, t + 4
     const float* ga =
-        gs0 + buf * T::GS + (wm * T::WMT * 16 + gq) * WG_GS + t;
+        gs0 + buf * Tl::GS + (wm * Tl::WMT * 16 + gq) * WG_GS + t;
     // B (8 pixels x 8 channels): rows t, t + 4; column gq; split at staging
     const float* xb = xs + (wn * 8 + gq) * WG_CS + t;
 #pragma unroll 2
     for (int j = 0; j < PX / 8; ++j) {
       const int r = j / (TW / 8);
       const int q0 = (j % (TW / 8)) * 8;
-      uint32_t ab[T::WMT][4], as[T::WMT][4], bb[9][2], bs[9][2];
+      uint32_t ab[Tl::WMT][4], as[Tl::WMT][4], bb[9][2], bs[9][2];
 #pragma unroll
-      for (int m = 0; m < T::WMT; ++m) {
+      for (int m = 0; m < Tl::WMT; ++m) {
         const float* p = ga + m * 16 * WG_GS + j * 8;
-        split3(p[0], ab[m][0], as[m][0]);
-        split3(p[8 * WG_GS], ab[m][1], as[m][1]);
-        split3(p[4], ab[m][2], as[m][2]);
-        split3(p[8 * WG_GS + 4], ab[m][3], as[m][3]);
+        if constexpr (is_f32<T>()) {
+          split3(p[0], ab[m][0], as[m][0]);
+          split3(p[8 * WG_GS], ab[m][1], as[m][1]);
+          split3(p[4], ab[m][2], as[m][2]);
+          split3(p[8 * WG_GS + 4], ab[m][3], as[m][3]);
+        } else {
+          ab[m][0] = __float_as_uint(p[0]);
+          ab[m][1] = __float_as_uint(p[8 * WG_GS]);
+          ab[m][2] = __float_as_uint(p[4]);
+          ab[m][3] = __float_as_uint(p[8 * WG_GS + 4]);
+        }
       }
 #pragma unroll
       for (int tap = 0; tap < 9; ++tap) {
         const float* p = xb + (r + tap / 3) * HALO_W + q0 + tap % 3;
-        const float* ps = p + T::CI_TW * WG_CS;
+        const float* ps = p + Tl::CI_TW * WG_CS;
         bb[tap][0] = __float_as_uint(p[0]);
         bb[tap][1] = __float_as_uint(p[4]);
-        bs[tap][0] = __float_as_uint(ps[0]);
-        bs[tap][1] = __float_as_uint(ps[4]);
+        if constexpr (is_f32<T>()) {
+          bs[tap][0] = __float_as_uint(ps[0]);
+          bs[tap][1] = __float_as_uint(ps[4]);
+        }
+      }
+      if constexpr (!is_f32<T>()) {
+        // bf16 operands: one exact TF32 product per multiply-add
+#pragma unroll
+        for (int m = 0; m < Tl::WMT; ++m)
+#pragma unroll
+          for (int tap = 0; tap < 9; ++tap)
+            mma_tf32(part[m][tap], ab[m], bb[tap]);
+        continue;
       }
       // pass by pass: no product waits on the one before it
 #pragma unroll
-      for (int m = 0; m < T::WMT; ++m)
+      for (int m = 0; m < Tl::WMT; ++m)
 #pragma unroll
         for (int tap = 0; tap < 9; ++tap)
           mma_tf32(part[m][tap], as[m], bb[tap]);
 #pragma unroll
-      for (int m = 0; m < T::WMT; ++m)
+      for (int m = 0; m < Tl::WMT; ++m)
 #pragma unroll
         for (int tap = 0; tap < 9; ++tap)
           mma_tf32(part[m][tap], ab[m], bs[tap]);
 #pragma unroll
-      for (int m = 0; m < T::WMT; ++m)
+      for (int m = 0; m < Tl::WMT; ++m)
 #pragma unroll
         for (int tap = 0; tap < 9; ++tap)
           mma_tf32(part[m][tap], ab[m], bb[tap]);
     }
 #pragma unroll
-    for (int m = 0; m < T::WMT; ++m)
+    for (int m = 0; m < Tl::WMT; ++m)
 #pragma unroll
       for (int k = 0; k < 9; ++k)
 #pragma unroll
@@ -676,10 +794,10 @@ conv3x3_wgrad_kernel(Input in, const float* __restrict__ g,  // (B, Co, H, W)
 
   // C (16 x 8): c0, c1 at row gq, columns 2t, 2t + 1; c2, c3 at row gq + 8
 #pragma unroll
-  for (int m = 0; m < T::WMT; ++m)
+  for (int m = 0; m < Tl::WMT; ++m)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int co = co0 + (wm * T::WMT + m) * 16 + gq + (i >= 2 ? 8 : 0);
+      const int co = co0 + (wm * Tl::WMT + m) * 16 + gq + (i >= 2 ? 8 : 0);
       const int ci = ci0 + wn * 8 + 2 * t + (i & 1);
       if (co < Co && ci < Ci) {
         float* out = part + (((long long)split * Co + co) * Ci + ci) * 9;
@@ -689,19 +807,21 @@ conv3x3_wgrad_kernel(Input in, const float* __restrict__ g,  // (B, Co, H, W)
     }
 }
 
-// dw[i] = sum over splits s, in order, of part[s][i].
+// dw[i] = sum over splits s, in order, of part[s][i] (rounded once to a
+// bf16 dw).
+template <typename TO>
 __global__ void sum_splits_kernel(const float* __restrict__ part,
-                                  float* __restrict__ dw, int splits,
+                                  TO* __restrict__ dw, int splits,
                                   long long n) {
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= n) return;
   float v = 0.f;
   for (int s = 0; s < splits; ++s) v += __ldg(part + s * n + i);
-  dw[i] = v;
+  st_f(dw + i, v);
 }
 
-template <int MW>
-int launch_wgrad(const Input& in, const float* g, float* part, int B,
+template <typename TI, int MW>
+int launch_wgrad(const Input<TI>& in, const TI* g, float* part, int B,
                  int Co, int splits, cudaStream_t s) {
   using T = WgTile<MW>;
   const int tiles_w = (in.W + TW - 1) / TW;
@@ -714,15 +834,81 @@ int launch_wgrad(const Input& in, const float* g, float* part, int B,
   const int ci_tiles = (in.C0 + in.C1 + T::CI_TW - 1) / T::CI_TW;
   const int co_tiles = (Co + T::CO_T - 1) / T::CO_T;
   cudaError_t err = cudaFuncSetAttribute(
-      conv3x3_wgrad_kernel<MW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      T::BYTES);
+      conv3x3_wgrad_kernel<TI, MW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, T::BYTES);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(co_tiles * ci_tiles, splits);
   // 16-byte copies of the cotangent when its rows are 16-byte aligned
   const int vec = in.W % 4 == 0 && (uintptr_t)g % 16 == 0;
-  conv3x3_wgrad_kernel<MW><<<grid, WG_THREADS, T::BYTES, s>>>(
+  conv3x3_wgrad_kernel<TI, MW><<<grid, WG_THREADS, T::BYTES, s>>>(
       in, g, part, Co, ci_tiles, tiles_w, tiles_img, n_tiles, per_split,
       vec);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int reflect_fwd(const void* x0, int C0, const void* x1, int C1,
+                const void* w, const void* bias, void* y, int B, int H,
+                int W, int Co, int elu, int nt, void* stream) {
+  const Input<T> in{(const T*)x0, (const T*)x1, nullptr, nullptr,
+                    C0, C1, H, W, /*reflect=*/1};
+  return run_fwd<T, T>(in, (const T*)w, (const float*)bias, (T*)y, B,
+                       /*off=*/0, Co, elu, nt, stream);
+}
+
+template <typename T>
+int zero_act_fwd(const void* x, int C, const void* w, const void* scale,
+                 const void* shift, void* y, int B, int H, int W, int Co,
+                 int nt, void* stream) {
+  const Input<T> in{(const T*)x, nullptr, (const T*)scale, (const T*)shift,
+                    C, 0, H, W, /*reflect=*/0};
+  return run_fwd<T, T>(in, (const T*)w, nullptr, (T*)y, B, /*off=*/0, Co,
+                       /*elu=*/0, nt, stream);
+}
+
+template <typename T>
+int dgrad(const void* g, int Co, const void* wt, void* dxp, void* dx0,
+          int C0, void* dx1, int C1, int B, int H, int W, int reflect,
+          int nt, void* stream) {
+  const int Ci = C0 + C1;
+  const Input<T> in{(const T*)g, nullptr, nullptr, nullptr, Co, 0, H, W,
+                    /*reflect=*/0};
+  if (!reflect)
+    return run_fwd<T, T>(in, (const T*)wt, nullptr, (T*)dx0, B, /*off=*/0,
+                         Ci, /*elu=*/0, nt, stream);
+  // the padded-domain sums stay float32 for the fold (dxp is float32)
+  int err = run_fwd<T, float>(in, (const T*)wt, nullptr, (float*)dxp, B,
+                              /*off=*/1, Ci, /*elu=*/0, nt, stream);
+  if (err) return err;
+  const long long total = (long long)B * Ci * H * W;
+  const long long blocks = (total + 255) / 256;
+  reflect_fold_kernel<T><<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(
+      (const float*)dxp, (T*)dx0, C0, (T*)dx1, C1, H, W, total);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int wgrad(const void* g, int Co, const void* x0, int C0, const void* x1,
+          int C1, const void* scale, const void* shift, void* part, void* dw,
+          int B, int H, int W, int reflect, int mw, int splits,
+          void* stream) {
+  const Input<T> in{(const T*)x0, (const T*)x1, (const T*)scale,
+                    (const T*)shift, C0, C1, H, W, reflect};
+  cudaStream_t s = (cudaStream_t)stream;
+  int err;
+  switch (mw) {
+    case 1: err = launch_wgrad<T, 1>(in, (const T*)g, (float*)part, B, Co,
+                                     splits, s); break;
+    case 2: err = launch_wgrad<T, 2>(in, (const T*)g, (float*)part, B, Co,
+                                     splits, s); break;
+    case 4: err = launch_wgrad<T, 4>(in, (const T*)g, (float*)part, B, Co,
+                                     splits, s); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err) return err;
+  const long long n = (long long)Co * (C0 + C1) * 9;
+  sum_splits_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
+      (const float*)part, (T*)dw, splits, n);
   return (int)cudaGetLastError();
 }
 
@@ -731,7 +917,9 @@ int launch_wgrad(const Input& in, const float* g, float* part, int B,
 // Every entry point launches on `stream`, which belongs to the current
 // device, and returns cudaGetLastError() (cudaErrorInvalidValue for a tile
 // choice it does not take). nt, mw and splits come from
-// kernels/conv3x3.py::conv_tiles.
+// kernels/conv3x3.py::conv_tiles. The _bf16 entry points take the same
+// arguments with every tensor bf16 but the bias (float32), dxp and part
+// (float32 scratch).
 
 // x0 (B, C0, H, W), x1 (B, C1, H, W) or null, w (Co, C0 + C1, 3, 3),
 // bias (Co,), y (B, Co, H, W); nt in {8, 16, 32, 64}.
@@ -739,10 +927,18 @@ extern "C" int fd_conv3x3_reflect_fwd(const void* x0, int C0, const void* x1,
                                       int C1, const void* w, const void* bias,
                                       void* y, int B, int H, int W, int Co,
                                       int elu, int nt, void* stream) {
-  const Input in{(const float*)x0, (const float*)x1, nullptr, nullptr,
-                 C0, C1, H, W, /*reflect=*/1};
-  return run_fwd(in, (const float*)w, (const float*)bias, (float*)y, B,
-                 /*off=*/0, Co, elu, nt, stream);
+  return reflect_fwd<float>(x0, C0, x1, C1, w, bias, y, B, H, W, Co, elu, nt,
+                            stream);
+}
+
+extern "C" int fd_conv3x3_reflect_fwd_bf16(const void* x0, int C0,
+                                           const void* x1, int C1,
+                                           const void* w, const void* bias,
+                                           void* y, int B, int H, int W,
+                                           int Co, int elu, int nt,
+                                           void* stream) {
+  return reflect_fwd<bf16>(x0, C0, x1, C1, w, bias, y, B, H, W, Co, elu, nt,
+                           stream);
 }
 
 // x (B, C, H, W), w (Co, C, 3, 3), scale/shift (C,) or both null (no input
@@ -751,10 +947,17 @@ extern "C" int fd_conv3x3_zero_act_fwd(const void* x, int C, const void* w,
                                        const void* scale, const void* shift,
                                        void* y, int B, int H, int W, int Co,
                                        int nt, void* stream) {
-  const Input in{(const float*)x, nullptr, (const float*)scale,
-                 (const float*)shift, C, 0, H, W, /*reflect=*/0};
-  return run_fwd(in, (const float*)w, nullptr, (float*)y, B, /*off=*/0, Co,
-                 /*elu=*/0, nt, stream);
+  return zero_act_fwd<float>(x, C, w, scale, shift, y, B, H, W, Co, nt,
+                             stream);
+}
+
+extern "C" int fd_conv3x3_zero_act_fwd_bf16(const void* x, int C,
+                                            const void* w, const void* scale,
+                                            const void* shift, void* y,
+                                            int B, int H, int W, int Co,
+                                            int nt, void* stream) {
+  return zero_act_fwd<bf16>(x, C, w, scale, shift, y, B, H, W, Co, nt,
+                            stream);
 }
 
 // g (B, Co, H, W), wt (C0 + C1, Co, 3, 3) the flipped, transposed weight.
@@ -766,20 +969,16 @@ extern "C" int fd_conv3x3_dgrad(const void* g, int Co, const void* wt,
                                 void* dxp, void* dx0, int C0, void* dx1,
                                 int C1, int B, int H, int W, int reflect,
                                 int nt, void* stream) {
-  const int Ci = C0 + C1;
-  const Input in{(const float*)g, nullptr, nullptr, nullptr, Co, 0, H, W,
-                 /*reflect=*/0};
-  if (!reflect)
-    return run_fwd(in, (const float*)wt, nullptr, (float*)dx0, B, /*off=*/0,
-                   Ci, /*elu=*/0, nt, stream);
-  int err = run_fwd(in, (const float*)wt, nullptr, (float*)dxp, B,
-                    /*off=*/1, Ci, /*elu=*/0, nt, stream);
-  if (err) return err;
-  const long long total = (long long)B * Ci * H * W;
-  const long long blocks = (total + 255) / 256;
-  reflect_fold_kernel<<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(
-      (const float*)dxp, (float*)dx0, C0, (float*)dx1, C1, H, W, total);
-  return (int)cudaGetLastError();
+  return dgrad<float>(g, Co, wt, dxp, dx0, C0, dx1, C1, B, H, W, reflect, nt,
+                      stream);
+}
+
+extern "C" int fd_conv3x3_dgrad_bf16(const void* g, int Co, const void* wt,
+                                     void* dxp, void* dx0, int C0, void* dx1,
+                                     int C1, int B, int H, int W, int reflect,
+                                     int nt, void* stream) {
+  return dgrad<bf16>(g, Co, wt, dxp, dx0, C0, dx1, C1, B, H, W, reflect, nt,
+                     stream);
 }
 
 // g (B, Co, H, W); x0 (B, C0, H, W), x1 (B, C1, H, W) or null; scale and
@@ -792,22 +991,16 @@ extern "C" int fd_conv3x3_wgrad(const void* g, int Co, const void* x0,
                                 void* part, void* dw, int B, int H, int W,
                                 int reflect, int mw, int splits,
                                 void* stream) {
-  const Input in{(const float*)x0, (const float*)x1, (const float*)scale,
-                 (const float*)shift, C0, C1, H, W, reflect};
-  cudaStream_t s = (cudaStream_t)stream;
-  int err;
-  switch (mw) {
-    case 1: err = launch_wgrad<1>(in, (const float*)g, (float*)part, B, Co,
-                                  splits, s); break;
-    case 2: err = launch_wgrad<2>(in, (const float*)g, (float*)part, B, Co,
-                                  splits, s); break;
-    case 4: err = launch_wgrad<4>(in, (const float*)g, (float*)part, B, Co,
-                                  splits, s); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  if (err) return err;
-  const long long n = (long long)Co * (C0 + C1) * 9;
-  sum_splits_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
-      (const float*)part, (float*)dw, splits, n);
-  return (int)cudaGetLastError();
+  return wgrad<float>(g, Co, x0, C0, x1, C1, scale, shift, part, dw, B, H, W,
+                      reflect, mw, splits, stream);
+}
+
+extern "C" int fd_conv3x3_wgrad_bf16(const void* g, int Co, const void* x0,
+                                     int C0, const void* x1, int C1,
+                                     const void* scale, const void* shift,
+                                     void* part, void* dw, int B, int H,
+                                     int W, int reflect, int mw, int splits,
+                                     void* stream) {
+  return wgrad<bf16>(g, Co, x0, C0, x1, C1, scale, shift, part, dw, B, H, W,
+                     reflect, mw, splits, stream);
 }

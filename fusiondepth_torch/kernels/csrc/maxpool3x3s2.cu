@@ -53,14 +53,26 @@
 // x 67/64 of the tile and is served mostly from L2, where the
 // neighbouring tile reads it too. (Staging x's interior columns as float4
 // measured slower on the card than these coalesced scalar loads.)
+//
+// bfloat16 (compute_dtype="bfloat16"; the _bf16 entry points): the same
+// kernels on bf16 x, y, g and dx, as pallas_pool.py:100-155 takes them.
+// The forward's max is exact in any type, so it stores the bf16 tap it
+// picked. The backward widens every value to float32 as it stages it,
+// compares ties exactly there, divides and sums g / count in float32
+// (pooling.py:123-158 upcasts g the same way) and rounds each dx once, as
+// it is stored. Half the bytes of the float32 kernels, so half their
+// bounds.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "dtype.cuh"
+
 namespace {
 
-__global__ void maxpool3x3s2_fwd_kernel(const float* __restrict__ x,
-                                        float* __restrict__ y, int H, int W,
+template <typename T>
+__global__ void maxpool3x3s2_fwd_kernel(const T* __restrict__ x,
+                                        T* __restrict__ y, int H, int W,
                                         int Ho, int Wo, long long total) {
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= total) return;
@@ -68,7 +80,7 @@ __global__ void maxpool3x3s2_fwd_kernel(const float* __restrict__ x,
   const long long t = i / Wo;
   const int oh = (int)(t % Ho);
   const long long plane = t / Ho;  // b * C + c
-  const float* xp = x + plane * H * W;
+  const T* xp = x + plane * H * W;
   float m = -INFINITY;
   for (int dy = 0; dy < 3; ++dy) {
     const int h = 2 * oh - 1 + dy;
@@ -76,11 +88,11 @@ __global__ void maxpool3x3s2_fwd_kernel(const float* __restrict__ x,
     for (int dx = 0; dx < 3; ++dx) {
       const int w = 2 * ow - 1 + dx;
       if (w < 0 || w >= W) continue;
-      const float v = __ldg(xp + (long long)h * W + w);
+      const float v = ldg_f(xp + (long long)h * W + w);
       if (v > m || isnan(v)) m = v;
     }
   }
-  y[i] = m;
+  st_f(y + i, m);  // one of the taps: exact in T
 }
 
 // The backward's tile: PB_TH x PB_TW windows, 256 threads, one 2 x 2 quad
@@ -93,11 +105,12 @@ constexpr int PB_XC = 2 * PB_TW + 3;  // staged x columns, 2 ow0 - 1 ...
 constexpr int PB_WR = PB_TH + 1;      // windows oh0 ... oh0 + PB_TH
 constexpr int PB_WC = PB_TW + 1;      // windows ow0 ... ow0 + PB_TW
 
+template <typename T>
 __global__ void __launch_bounds__(PB_THREADS)
-    maxpool3x3s2_bwd_kernel(const float* __restrict__ x,
-                            const float* __restrict__ y,
-                            const float* __restrict__ g,
-                            float* __restrict__ dx, int H, int W, int Ho,
+    maxpool3x3s2_bwd_kernel(const T* __restrict__ x,
+                            const T* __restrict__ y,
+                            const T* __restrict__ g,
+                            T* __restrict__ dx, int H, int W, int Ho,
                             int Wo, int tiles_h, int tiles_w) {
   __shared__ float xs[PB_XR][PB_XC];
   __shared__ float ys[PB_WR][PB_WC];
@@ -109,15 +122,15 @@ __global__ void __launch_bounds__(PB_THREADS)
   const int th = (int)(t % tiles_h);
   const long long plane = t / tiles_h;  // b * C + c
   const int oh0 = th * PB_TH, ow0 = tw * PB_TW;
-  const float* xp = x + plane * H * W;
-  const float* yp = y + plane * Ho * Wo;
-  const float* gp = g + plane * Ho * Wo;
+  const T* xp = x + plane * H * W;
+  const T* yp = y + plane * Ho * Wo;
+  const T* gp = g + plane * Ho * Wo;
 
   for (int i = tid; i < PB_XR * PB_XC; i += PB_THREADS) {
     const int r = i / PB_XC, c = i % PB_XC;
     const int h = 2 * oh0 - 1 + r, w = 2 * ow0 - 1 + c;
     xs[r][c] = (h >= 0 && h < H && w >= 0 && w < W)
-                   ? __ldg(xp + (long long)h * W + w)
+                   ? ldg_f(xp + (long long)h * W + w)
                    : -INFINITY;
   }
   for (int i = tid; i < PB_WR * PB_WC; i += PB_THREADS) {
@@ -125,8 +138,8 @@ __global__ void __launch_bounds__(PB_THREADS)
     const int oh = oh0 + r, ow = ow0 + c;
     const bool in = oh < Ho && ow < Wo;
     const long long o = (long long)oh * Wo + ow;
-    ys[r][c] = in ? __ldg(yp + o) : NAN;
-    gcs[r][c] = in ? __ldg(gp + o) : 0.f;
+    ys[r][c] = in ? ldg_f(yp + o) : NAN;
+    gcs[r][c] = in ? ldg_f(gp + o) : 0.f;
   }
   __syncthreads();
 
@@ -175,9 +188,37 @@ __global__ void __launch_bounds__(PB_THREADS)
   if (x11 == y10) bot.y += g10;
   if (x11 == y01) bot.y += g01;
   if (x11 == y00) bot.y += g00;
-  float* dp = dx + plane * H * W + (long long)(2 * oh) * W + 2 * ow;
-  *reinterpret_cast<float2*>(dp) = top;
-  *reinterpret_cast<float2*>(dp + W) = bot;
+  T* dp = dx + plane * H * W + (long long)(2 * oh) * W + 2 * ow;
+  st2_f(dp, top);
+  st2_f(dp + W, bot);
+}
+
+template <typename T>
+int launch_fwd(const void* x, void* y, int B, int C, int H, int W,
+               void* stream) {
+  const int Ho = (H - 1) / 2 + 1;
+  const int Wo = (W - 1) / 2 + 1;
+  const long long total = (long long)B * C * Ho * Wo;
+  const int threads = 256;
+  const long long blocks = (total + threads - 1) / threads;
+  maxpool3x3s2_fwd_kernel<T><<<(unsigned)blocks, threads, 0,
+                               (cudaStream_t)stream>>>(
+      (const T*)x, (T*)y, H, W, Ho, Wo, total);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd(const void* x, const void* y, const void* g, void* dx, int B,
+               int C, int H, int W, void* stream) {
+  const int Ho = H / 2, Wo = W / 2;
+  const int tiles_h = (Ho + PB_TH - 1) / PB_TH;
+  const int tiles_w = (Wo + PB_TW - 1) / PB_TW;
+  const long long blocks = (long long)B * C * tiles_h * tiles_w;
+  maxpool3x3s2_bwd_kernel<T><<<(unsigned)blocks, PB_THREADS, 0,
+                               (cudaStream_t)stream>>>(
+      (const T*)x, (const T*)y, (const T*)g, (T*)dx, H, W, Ho, Wo, tiles_h,
+      tiles_w);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -187,15 +228,7 @@ __global__ void __launch_bounds__(PB_THREADS)
 // belongs to the current device. Returns cudaGetLastError().
 extern "C" int fd_maxpool3x3s2_fwd(const void* x, void* y, int B, int C,
                                    int H, int W, void* stream) {
-  const int Ho = (H - 1) / 2 + 1;
-  const int Wo = (W - 1) / 2 + 1;
-  const long long total = (long long)B * C * Ho * Wo;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  maxpool3x3s2_fwd_kernel<<<(unsigned)blocks, threads, 0,
-                            (cudaStream_t)stream>>>(
-      (const float*)x, (float*)y, H, W, Ho, Wo, total);
-  return (int)cudaGetLastError();
+  return launch_fwd<float>(x, y, B, C, H, W, stream);
 }
 
 // x (B, C, H, W) with H and W even, y and g (B, C, H/2, W/2) -> dx
@@ -203,15 +236,19 @@ extern "C" int fd_maxpool3x3s2_fwd(const void* x, void* y, int B, int C,
 extern "C" int fd_maxpool3x3s2_bwd(const void* x, const void* y,
                                    const void* g, void* dx, int B, int C,
                                    int H, int W, void* stream) {
-  const int Ho = H / 2, Wo = W / 2;
-  const int tiles_h = (Ho + PB_TH - 1) / PB_TH;
-  const int tiles_w = (Wo + PB_TW - 1) / PB_TW;
-  const long long blocks = (long long)B * C * tiles_h * tiles_w;
-  maxpool3x3s2_bwd_kernel<<<(unsigned)blocks, PB_THREADS, 0,
-                            (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)y, (const float*)g, (float*)dx, H, W,
-      Ho, Wo, tiles_h, tiles_w);
-  return (int)cudaGetLastError();
+  return launch_bwd<float>(x, y, g, dx, B, C, H, W, stream);
+}
+
+// The same on bfloat16 tensors.
+extern "C" int fd_maxpool3x3s2_fwd_bf16(const void* x, void* y, int B, int C,
+                                        int H, int W, void* stream) {
+  return launch_fwd<bf16>(x, y, B, C, H, W, stream);
+}
+
+extern "C" int fd_maxpool3x3s2_bwd_bf16(const void* x, const void* y,
+                                        const void* g, void* dx, int B,
+                                        int C, int H, int W, void* stream) {
+  return launch_bwd<bf16>(x, y, g, dx, B, C, H, W, stream);
 }
 
 extern "C" const char* fd_error_string(int err) {

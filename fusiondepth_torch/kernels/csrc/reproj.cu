@@ -25,8 +25,11 @@
 // where box3T is the adjoint of the reflect-padded 3x3 mean: the taps of o
 // that reflect onto q count once more (row 0's tap -1 lands on row 1, row
 // H-1's tap +1 on row H-2, likewise in W), as in the conv dgrad's pad
-// adjoint. The clip passes the gradient on its closed interval [0, 1] and
-// |.| has derivative 0 at 0, as torch's clamp and abs do.
+// adjoint. The kinks take the JAX package's derivatives (jax.vjp of the
+// Pallas kernel's jnp.clip and jnp.abs): the clip passes the gradient
+// inside (0, 1) and half of it on either bound (jnp.clip is a max and a
+// min, which split a tie), and d|t - p| / dp is -1 where p == t (jnp.abs
+// takes +1 at 0); ops/planes.py::clip and ::jabs in the plain version.
 //
 // Bound: bytes. At 640x192, batch 12, 2 x 4 warps and C = 3 the forward
 // reads 141.6 MB of warped and 17.7 MB of target and writes 47.2 MB
@@ -86,9 +89,20 @@
 // version. A step is a long dependent chain, so the kernel lives on
 // occupancy: BWD_BLOCKS_PER_SM = 3 caps it at 80 registers, with 26.6 KB
 // of shared memory a block; 792 blocks at the b12 shape, two full waves.
+//
+// bfloat16 (compute_dtype="bfloat16"; the _bf16 entry points): the same
+// kernels on bf16 warped, target, cotangent, map and dwarped. As the
+// Pallas kernel does (pallas_reproj.py:87-93), every value is widened to
+// float32 as it is loaded and the moments, the SSIM algebra and the
+// adjoint run in float32; the map (:114) and dwarped (:128-130, :267) are
+// rounded to bf16 once, where they are stored. The target's moments are
+// computed here in float32 from the bf16 target (the JAX wrapper hands
+// its kernel box3(target) already rounded to bf16, an HBM input there).
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "dtype.cuh"
 
 namespace {
 
@@ -242,11 +256,11 @@ struct FwdRow {
   float p[C][FWD_CPL], pp[C][FWD_CPL], pt[C][FWD_CPL];
 };
 
-template <int C>
+template <typename T, int C>
 __global__ void __launch_bounds__(FWD_WARPS * 32, FWD_BLOCKS_PER_SM)
-    reproj_fwd_kernel(const float* __restrict__ warped,
-                      const float* __restrict__ target,
-                      float* __restrict__ out, int NK, int B, int H, int W,
+    reproj_fwd_kernel(const T* __restrict__ warped,
+                      const T* __restrict__ target,
+                      T* __restrict__ out, int NK, int B, int H, int W,
                       int slices) {
   static_assert(C >= 1 && C <= FWD_MAX_C, "channels");
   constexpr int CPL = FWD_CPL, SPAN = FWD_SPAN, TH = FWD_TH;
@@ -265,10 +279,10 @@ __global__ void __launch_bounds__(FWD_WARPS * 32, FWD_BLOCKS_PER_SM)
   // warps
 #pragma unroll
   for (int c = 0; c < C; ++c) {
-    const float* t = target + ((long long)b * C + c) * HW;
+    const T* t = target + ((long long)b * C + c) * HW;
     for (int i = threadIdx.x; i < FWD_T_FLOATS; i += blockDim.x) {
       const int r = reflect(y0 - 1 + i / SPAN, H);
-      Ts(c)[i] = __ldg(t + (long long)r * W + reflect(x0 - 1 + i % SPAN, W));
+      Ts(c)[i] = ldg_f(t + (long long)r * W + reflect(x0 - 1 + i % SPAN, W));
     }
   }
   __syncthreads();
@@ -316,16 +330,16 @@ __global__ void __launch_bounds__(FWD_WARPS * 32, FWD_BLOCKS_PER_SM)
     const int ye = min(min(ys + rows, y0 + TH), H);
     if (ys >= ye) continue;  // the slice lies below the image
     const long long plane = (long long)jp * B + b;  // (n * K + k) * B + b
-    const float* p = warped + plane * C * HW;
-    float* orow = out + plane * HW;
+    const T* p = warped + plane * C * HW;
+    T* orow = out + plane * HW;
 
     // warped at image row `row`, every channel
     auto fetch = [&](int row, float (&pv)[C][CPL]) {
-      const float* src = p + (long long)reflect(row, H) * W;
+      const T* src = p + (long long)reflect(row, H) * W;
 #pragma unroll
       for (int c = 0; c < C; ++c)
 #pragma unroll
-        for (int j = 0; j < CPL; ++j) pv[c][j] = __ldg(src + c * HW + xr[j]);
+        for (int j = 0; j < CPL; ++j) pv[c][j] = ldg_f(src + c * HW + xr[j]);
     };
     // p^2 and p t of image row `row`
     auto products = [&](int row, FwdRow<C>& x) {
@@ -390,9 +404,9 @@ __global__ void __launch_bounds__(FWD_WARPS * 32, FWD_BLOCKS_PER_SM)
 #pragma unroll
       for (int j = 0; j < CPL; ++j)
         if (oval[j])
-          orow[(long long)r * W + xs[j]] =
-              __fadd_rn(__fmul_rn(0.85f, __fmul_rn(ssim_sum[j], inv_c)),
-                        __fmul_rn(0.15f, __fmul_rn(l1_sum[j], inv_c)));
+          st_f(orow + (long long)r * W + xs[j],
+               __fadd_rn(__fmul_rn(0.85f, __fmul_rn(ssim_sum[j], inv_c)),
+                         __fmul_rn(0.15f, __fmul_rn(l1_sum[j], inv_c))));
     };
 
     FwdRow<C> r0, r1, r2;  // input rows ys - 1 and ys in r0 and r1
@@ -410,14 +424,14 @@ __global__ void __launch_bounds__(FWD_WARPS * 32, FWD_BLOCKS_PER_SM)
   }
 }
 
-template <int C>
-int launch_fwd(const float* warped, const float* target, float* out, int NK,
-               int B, int H, int W, cudaStream_t stream) {
+template <typename T, int C>
+int launch_fwd(const T* warped, const T* target, T* out, int NK, int B,
+               int H, int W, cudaStream_t stream) {
   constexpr int smem = C * FWD_CH_FLOATS * (int)sizeof(float);
-  static bool sized = false;  // the opt-in above 48 KB, once per C
+  static bool sized = false;  // the opt-in above 48 KB, once per T, C
   if (!sized) {
     const int err = (int)cudaFuncSetAttribute(
-        reproj_fwd_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        reproj_fwd_kernel<T, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (err) return err;
     sized = true;
@@ -429,16 +443,17 @@ int launch_fwd(const float* warped, const float* target, float* out, int NK,
   const dim3 grid((W + FWD_COLS - 1) / FWD_COLS, (H + FWD_TH - 1) / FWD_TH,
                   B);
   const int threads = 32 * min(NK * slices, FWD_WARPS);
-  reproj_fwd_kernel<C><<<grid, threads, smem, stream>>>(
+  reproj_fwd_kernel<T, C><<<grid, threads, smem, stream>>>(
       warped, target, out, NK, B, H, W, slices);
   return (int)cudaGetLastError();
 }
 
+template <typename T>
 __global__ void __launch_bounds__(BWD_WARPS * 32, BWD_BLOCKS_PER_SM)
-    reproj_bwd_kernel(const float* __restrict__ warped,
-                      const float* __restrict__ target,
-                      const float* __restrict__ g,
-                      float* __restrict__ dwarped, int NK, int B, int C,
+    reproj_bwd_kernel(const T* __restrict__ warped,
+                      const T* __restrict__ target,
+                      const T* __restrict__ g,
+                      T* __restrict__ dwarped, int NK, int B, int C,
                       int H, int W) {
   constexpr int CPL = BWD_CPL, SPAN = BWD_SPAN, TH = BWD_TH;
   // the target of channel c on the strip's rows y0 - 2 ... y0 + TH + 1, and
@@ -474,11 +489,11 @@ __global__ void __launch_bounds__(BWD_WARPS * 32, BWD_BLOCKS_PER_SM)
   const int steps = min(TH + 2, H - y0 + 2);
 
   for (int c = 0; c < C; ++c) {
-    const float* t = target + ((long long)b * C + c) * HW;
+    const T* t = target + ((long long)b * C + c) * HW;
     __syncthreads();
     for (int i = threadIdx.x; i < (TH + 4) * SPAN; i += blockDim.x) {
       const int r = reflect(y0 - 2 + i / SPAN, H);
-      Ts[i] = __ldg(t + (long long)r * W + reflect(x0 - 2 + i % SPAN, W));
+      Ts[i] = ldg_f(t + (long long)r * W + reflect(x0 - 2 + i % SPAN, W));
     }
     __syncthreads();
     for (int i = threadIdx.x; i < (TH + 2) * SPAN; i += blockDim.x) {
@@ -504,21 +519,21 @@ __global__ void __launch_bounds__(BWD_WARPS * 32, BWD_BLOCKS_PER_SM)
 
     for (int jp = warp; jp < NK; jp += nwarps) {
       const long long plane = (long long)jp * B + b;  // (n * K + k) * B + b
-      const float* p = warped + (plane * C + c) * HW;
-      const float* gp = g + plane * HW;
-      float* dp = dwarped + (plane * C + c) * HW;
+      const T* p = warped + (plane * C + c) * HW;
+      const T* gp = g + plane * HW;
+      T* dp = dwarped + (plane * C + c) * HW;
 
       // warped at image row y0 - 2 + i; g at image row o, clamped (a lane
       // whose column is outside the image reads its reflection, unused)
       auto fetch = [&](int i, float (&pv)[CPL]) {
-        const float* row = p + (long long)reflect(y0 - 2 + i, H) * W;
+        const T* row = p + (long long)reflect(y0 - 2 + i, H) * W;
 #pragma unroll
-        for (int j = 0; j < CPL; ++j) pv[j] = __ldg(row + xr[j]);
+        for (int j = 0; j < CPL; ++j) pv[j] = ldg_f(row + xr[j]);
       };
       auto fetch_g = [&](int o, float (&gv)[CPL]) {
-        const float* row = gp + (long long)min(max(o, 0), H - 1) * W;
+        const T* row = gp + (long long)min(max(o, 0), H - 1) * W;
 #pragma unroll
-        for (int j = 0; j < CPL; ++j) gv[j] = __ldg(row + xr[j]);
+        for (int j = 0; j < CPL; ++j) gv[j] = ldg_f(row + xr[j]);
       };
       // p^2 and p t of staged row i
       auto products = [&](int i, Row& x) {
@@ -574,9 +589,11 @@ __global__ void __launch_bounds__(BWD_WARPS * 32, BWD_BLOCKS_PER_SM)
           cur.G[j] = ok ? gv[j] * inv_c : 0.f;
           const Ssim f = ssim_terms(m);
           const float raw = __fsub_rn(1.f, f.q) * 0.5f;
-          // d loss / d q, through the clip (closed interval) and (1 - q) / 2
-          const float a =
-              (raw >= 0.f && raw <= 1.f) ? -0.5f * 0.85f * cur.G[j] : 0.f;
+          // d loss / d q, through the clip (half on a bound) and
+          // (1 - q) / 2
+          const float clip_d = (raw > 0.f && raw < 1.f) ? 1.f
+                               : (raw == 0.f || raw == 1.f) ? 0.5f : 0.f;
+          const float a = -0.5f * 0.85f * cur.G[j] * clip_d;
           // the coefficient's quotient: the approximate division (2 ulp)
           // is far inside the cotangent's tolerance, and a step's latency
           // chain runs through it (the SSIM quotient f.q stays IEEE)
@@ -597,7 +614,7 @@ __global__ void __launch_bounds__(BWD_WARPS * 32, BWD_BLOCKS_PER_SM)
         const int q = o - 1;
         const float w0 = tap_weight(q, -1, H), w1 = tap_weight(q, 0, H),
                     w2 = tap_weight(q, 1, H);
-        float* drow = dp + (long long)q * W;
+        T* drow = dp + (long long)q * W;
 #pragma unroll
         for (int j = 0; j < CPL; ++j) {
           float sum[3];
@@ -607,10 +624,11 @@ __global__ void __launch_bounds__(BWD_WARPS * 32, BWD_BLOCKS_PER_SM)
           const float pv = older.p[j];
           const float tv = Ts[s * SPAN + CPL * lane + j];
           const float diff = pv - tv;
-          const float sgn = diff > 0.f ? 1.f : (diff < 0.f ? -1.f : 0.f);
+          const float sgn = diff > 0.f ? 1.f : -1.f;  // d|t - p| / dp
           if (oval[j])
-            drow[xs[j]] = k9 * (sum[0] + 2.f * pv * sum[1] + tv * sum[2]) +
-                          0.15f * old.G[j] * sgn;
+            st_f(drow + xs[j],
+                 k9 * (sum[0] + 2.f * pv * sum[1] + tv * sum[2]) +
+                     0.15f * old.G[j] * sgn);
         }
       };
 
@@ -630,6 +648,39 @@ __global__ void __launch_bounds__(BWD_WARPS * 32, BWD_BLOCKS_PER_SM)
   }
 }
 
+template <typename T>
+int run_fwd(const void* warped, const void* target, void* out, int NK, int B,
+            int C, int H, int W, void* stream) {
+  const T* w = (const T*)warped;
+  const T* t = (const T*)target;
+  T* o = (T*)out;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (C) {
+    case 1:
+      return launch_fwd<T, 1>(w, t, o, NK, B, H, W, st);
+    case 2:
+      return launch_fwd<T, 2>(w, t, o, NK, B, H, W, st);
+    case 3:
+      return launch_fwd<T, 3>(w, t, o, NK, B, H, W, st);
+    case 4:
+      return launch_fwd<T, 4>(w, t, o, NK, B, H, W, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+int run_bwd(const void* warped, const void* target, const void* g,
+            void* dwarped, int NK, int B, int C, int H, int W, void* stream) {
+  const dim3 grid((W + BWD_COLS - 1) / BWD_COLS, (H + BWD_TH - 1) / BWD_TH,
+                  B);
+  const int threads = 32 * min(NK, BWD_WARPS);
+  reproj_bwd_kernel<T><<<grid, threads, 0, (cudaStream_t)stream>>>(
+      (const T*)warped, (const T*)target, (const T*)g, (T*)dwarped, NK, B, C,
+      H, W);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // warped (N, K, B, C, H, W), target (B, C, H, W) -> out (N, K, B, H, W).
@@ -639,22 +690,7 @@ __global__ void __launch_bounds__(BWD_WARPS * 32, BWD_BLOCKS_PER_SM)
 extern "C" int fd_reproj_fwd(const void* warped, const void* target,
                              void* out, int NK, int B, int C, int H, int W,
                              void* stream) {
-  const float* w = (const float*)warped;
-  const float* t = (const float*)target;
-  float* o = (float*)out;
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (C) {
-    case 1:
-      return launch_fwd<1>(w, t, o, NK, B, H, W, st);
-    case 2:
-      return launch_fwd<2>(w, t, o, NK, B, H, W, st);
-    case 3:
-      return launch_fwd<3>(w, t, o, NK, B, H, W, st);
-    case 4:
-      return launch_fwd<4>(w, t, o, NK, B, H, W, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return run_fwd<float>(warped, target, out, NK, B, C, H, W, stream);
 }
 
 // g (N, K, B, H, W) -> dwarped (N, K, B, C, H, W). One block per (band of
@@ -662,11 +698,18 @@ extern "C" int fd_reproj_fwd(const void* warped, const void* target,
 extern "C" int fd_reproj_bwd(const void* warped, const void* target,
                              const void* g, void* dwarped, int NK, int B,
                              int C, int H, int W, void* stream) {
-  const dim3 grid((W + BWD_COLS - 1) / BWD_COLS, (H + BWD_TH - 1) / BWD_TH,
-                  B);
-  const int threads = 32 * min(NK, BWD_WARPS);
-  reproj_bwd_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)warped, (const float*)target, (const float*)g,
-      (float*)dwarped, NK, B, C, H, W);
-  return (int)cudaGetLastError();
+  return run_bwd<float>(warped, target, g, dwarped, NK, B, C, H, W, stream);
+}
+
+// The same on bfloat16 tensors (every argument bf16).
+extern "C" int fd_reproj_fwd_bf16(const void* warped, const void* target,
+                                  void* out, int NK, int B, int C, int H,
+                                  int W, void* stream) {
+  return run_fwd<bf16>(warped, target, out, NK, B, C, H, W, stream);
+}
+
+extern "C" int fd_reproj_bwd_bf16(const void* warped, const void* target,
+                                  const void* g, void* dwarped, int NK,
+                                  int B, int C, int H, int W, void* stream) {
+  return run_bwd<bf16>(warped, target, g, dwarped, NK, B, C, H, W, stream);
 }

@@ -57,9 +57,23 @@
 // 4 columns 32 apart lose the backward; 1 column a thread loses both;
 // 16 rows match 8 where the taps lie near the output and win by up to
 // 10% where they scatter; the prefetch gains 2-5%.
+//
+// bfloat16 (compute_dtype="bfloat16"; the _bf16 entry points): the same
+// kernels with bf16 sources, output and cotangent, as pallas_warp.py
+// takes them. The coordinates stay float32: the JAX wrapper casts the
+// grids to float32 before the kernel (pallas_warp.py:485-486), and so
+// does ops/warp.py here. Each tap is widened to float32, the sample is
+// taken in float32 and rounded once to bf16 where it is stored; the
+// coordinate backward widens the cotangent and sums over C in float32
+// (pallas_warp.py:312-316). The Pallas forward builds its horizontal tent
+// weights in bf16 (:191-212) because the MXU takes bf16 operands; here the
+// weights are registers, so they keep float32, as the JAX package's XLA
+// warp (ops/warp.py::warp_planes_xla) does: one rounding, at the output.
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "dtype.cuh"
 
 namespace {
 
@@ -115,34 +129,37 @@ __device__ __forceinline__ Place place(int B, int H, int W) {
   return p;
 }
 
-// The thread's WARP_COLS floats of a plane read once (coordinates,
+// The thread's WARP_COLS values of a plane read once (coordinates,
 // cotangent), evict-first, so that they do not push the source taps out of
 // L1. A column outside the row reads the first column's value instead (a
 // selected address, not a predicated load: 10% faster in the backward), so
 // its taps stay in the plane; it is not stored.
-__device__ __forceinline__ void load_once(const float* q, const Place& p,
+template <typename T>
+__device__ __forceinline__ void load_once(const T* q, const Place& p,
                                           float (&v)[WARP_COLS]) {
 #pragma unroll
   for (int j = 0; j < WARP_COLS; ++j)
-    v[j] = __ldcs(q + (32 * j < p.room ? 32 * j : 0));
+    v[j] = ldcs_f(q + (32 * j < p.room ? 32 * j : 0));
 }
 
 // The thread's WARP_COLS outputs of a plane, written once, evict-first.
-__device__ __forceinline__ void store_once(float* q, const Place& p,
+template <typename T>
+__device__ __forceinline__ void store_once(T* q, const Place& p,
                                            const float (&v)[WARP_COLS]) {
 #pragma unroll
   for (int j = 0; j < WARP_COLS; ++j)
-    if (32 * j < p.room) __stcs(q + 32 * j, v[j]);
+    if (32 * j < p.room) stcs_f(q + 32 * j, v[j]);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(32 * WARP_ROWS, WARP_MIN_BLOCKS)
     warp_fwd_kernel(const float* __restrict__ ix, const float* __restrict__ iy,
-                    const float* __restrict__ src, float* __restrict__ out,
+                    const T* __restrict__ src, T* __restrict__ out,
                     int K, int B, int C, int H, int W) {
   const Place p = place(B, H, W);
   if (!p.inside) return;
   const size_t HW = (size_t)H * W;
-  const float* s = src + (size_t)blockIdx.z * C * HW;  // plane (n, b, 0)
+  const T* s = src + (size_t)blockIdx.z * C * HW;  // plane (n, b, 0)
   size_t nkb = (size_t)p.n * K * B + p.b;              // (n, k, b) at k = 0
   float x[WARP_COLS], y[WARP_COLS];
   load_once(ix + nkb * HW + p.pix, p, x);
@@ -155,14 +172,14 @@ __global__ void __launch_bounds__(32 * WARP_ROWS, WARP_MIN_BLOCKS)
       load_once(ix + (nkb + B) * HW + p.pix, p, x);
       load_once(iy + (nkb + B) * HW + p.pix, p, y);
     }
-    float* o = out + nkb * C * HW + p.pix;
-    const float* sc = s;
+    T* o = out + nkb * C * HW + p.pix;
+    const T* sc = s;
     for (int c = 0; c < C; ++c, sc += HW, o += HW) {
       float r[WARP_COLS];
 #pragma unroll
       for (int j = 0; j < WARP_COLS; ++j) {
-        const float v00 = __ldg(sc + t[j].i00), v01 = __ldg(sc + t[j].i01);
-        const float v10 = __ldg(sc + t[j].i10), v11 = __ldg(sc + t[j].i11);
+        const float v00 = ldg_f(sc + t[j].i00), v01 = ldg_f(sc + t[j].i01);
+        const float v10 = ldg_f(sc + t[j].i10), v11 = ldg_f(sc + t[j].i11);
         const float wx = t[j].wx, wy = t[j].wy;
         r[j] = v00 * (1.f - wx) * (1.f - wy) + v01 * wx * (1.f - wy) +
                v10 * (1.f - wx) * wy + v11 * wx * wy;
@@ -172,15 +189,16 @@ __global__ void __launch_bounds__(32 * WARP_ROWS, WARP_MIN_BLOCKS)
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(32 * WARP_ROWS, WARP_MIN_BLOCKS)
     warp_bwd_kernel(const float* __restrict__ ix, const float* __restrict__ iy,
-                    const float* __restrict__ src, const float* __restrict__ g,
+                    const T* __restrict__ src, const T* __restrict__ g,
                     float* __restrict__ gix, float* __restrict__ giy, int K,
                     int B, int C, int H, int W) {
   const Place p = place(B, H, W);
   if (!p.inside) return;
   const size_t HW = (size_t)H * W;
-  const float* s = src + (size_t)blockIdx.z * C * HW;
+  const T* s = src + (size_t)blockIdx.z * C * HW;
   size_t nkb = (size_t)p.n * K * B + p.b;
   float x[WARP_COLS], y[WARP_COLS];
   load_once(ix + nkb * HW + p.pix, p, x);
@@ -193,8 +211,8 @@ __global__ void __launch_bounds__(32 * WARP_ROWS, WARP_MIN_BLOCKS)
       load_once(ix + (nkb + B) * HW + p.pix, p, x);
       load_once(iy + (nkb + B) * HW + p.pix, p, y);
     }
-    const float* gp = g + nkb * C * HW + p.pix;
-    const float* sc = s;
+    const T* gp = g + nkb * C * HW + p.pix;
+    const T* sc = s;
     float ax[WARP_COLS], ay[WARP_COLS];
 #pragma unroll
     for (int j = 0; j < WARP_COLS; ++j) ax[j] = ay[j] = 0.f;
@@ -203,8 +221,8 @@ __global__ void __launch_bounds__(32 * WARP_ROWS, WARP_MIN_BLOCKS)
       load_once(gp, p, gc);
 #pragma unroll
       for (int j = 0; j < WARP_COLS; ++j) {
-        const float v00 = __ldg(sc + t[j].i00), v01 = __ldg(sc + t[j].i01);
-        const float v10 = __ldg(sc + t[j].i10), v11 = __ldg(sc + t[j].i11);
+        const float v00 = ldg_f(sc + t[j].i00), v01 = ldg_f(sc + t[j].i01);
+        const float v10 = ldg_f(sc + t[j].i10), v11 = ldg_f(sc + t[j].i11);
         const float wx = t[j].wx, wy = t[j].wy;
         ax[j] += gc[j] * ((v01 - v00) * (1.f - wy) + (v11 - v10) * wy);
         ay[j] += gc[j] * ((v10 - v00) * (1.f - wx) + (v11 - v01) * wx);
@@ -227,6 +245,29 @@ bool grid_of(int N, int B, int H, int W, dim3* grid) {
   return true;
 }
 
+template <typename T>
+int launch_fwd(const void* ix, const void* iy, const void* src, void* out,
+               int N, int K, int B, int C, int H, int W, void* stream) {
+  dim3 grid;
+  if (!grid_of(N, B, H, W, &grid)) return (int)cudaErrorInvalidValue;
+  warp_fwd_kernel<T><<<grid, dim3(32, WARP_ROWS), 0, (cudaStream_t)stream>>>(
+      (const float*)ix, (const float*)iy, (const T*)src, (T*)out, K, B, C, H,
+      W);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd(const void* ix, const void* iy, const void* src,
+               const void* g, void* gix, void* giy, int N, int K, int B,
+               int C, int H, int W, void* stream) {
+  dim3 grid;
+  if (!grid_of(N, B, H, W, &grid)) return (int)cudaErrorInvalidValue;
+  warp_bwd_kernel<T><<<grid, dim3(32, WARP_ROWS), 0, (cudaStream_t)stream>>>(
+      (const float*)ix, (const float*)iy, (const T*)src, (const T*)g,
+      (float*)gix, (float*)giy, K, B, C, H, W);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // ix, iy (N, K, B, H, W); src (N, B, C, H, W); out (N, K, B, C, H, W).
@@ -236,22 +277,28 @@ bool grid_of(int N, int B, int H, int W, dim3* grid) {
 extern "C" int fd_warp_fwd(const void* ix, const void* iy, const void* src,
                            void* out, int N, int K, int B, int C, int H,
                            int W, void* stream) {
-  dim3 grid;
-  if (!grid_of(N, B, H, W, &grid)) return (int)cudaErrorInvalidValue;
-  warp_fwd_kernel<<<grid, dim3(32, WARP_ROWS), 0, (cudaStream_t)stream>>>(
-      (const float*)ix, (const float*)iy, (const float*)src, (float*)out, K,
-      B, C, H, W);
-  return (int)cudaGetLastError();
+  return launch_fwd<float>(ix, iy, src, out, N, K, B, C, H, W, stream);
 }
 
 // g (N, K, B, C, H, W) -> gix, giy (N, K, B, H, W). As fd_warp_fwd.
 extern "C" int fd_warp_bwd(const void* ix, const void* iy, const void* src,
                            const void* g, void* gix, void* giy, int N, int K,
                            int B, int C, int H, int W, void* stream) {
-  dim3 grid;
-  if (!grid_of(N, B, H, W, &grid)) return (int)cudaErrorInvalidValue;
-  warp_bwd_kernel<<<grid, dim3(32, WARP_ROWS), 0, (cudaStream_t)stream>>>(
-      (const float*)ix, (const float*)iy, (const float*)src, (const float*)g,
-      (float*)gix, (float*)giy, K, B, C, H, W);
-  return (int)cudaGetLastError();
+  return launch_bwd<float>(ix, iy, src, g, gix, giy, N, K, B, C, H, W,
+                           stream);
+}
+
+// The same with bf16 src, out and g; ix, iy, gix and giy stay float32.
+extern "C" int fd_warp_fwd_bf16(const void* ix, const void* iy,
+                                const void* src, void* out, int N, int K,
+                                int B, int C, int H, int W, void* stream) {
+  return launch_fwd<bf16>(ix, iy, src, out, N, K, B, C, H, W, stream);
+}
+
+extern "C" int fd_warp_bwd_bf16(const void* ix, const void* iy,
+                                const void* src, const void* g, void* gix,
+                                void* giy, int N, int K, int B, int C, int H,
+                                int W, void* stream) {
+  return launch_bwd<bf16>(ix, iy, src, g, gix, giy, N, K, B, C, H, W,
+                          stream);
 }

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from fusiondepth_torch.kernels import LAUNCHES, build, check_cuda_f32, \
+from fusiondepth_torch.kernels import LAUNCHES, build, check_cuda, \
     on_card
 
 MAX_K = 16
@@ -70,7 +70,7 @@ def knn(points: torch.Tensor, k: int = 10) -> torch.Tensor:
     if points.device.type == "cpu":
         return knn_plain(points, k)
     name = "knn"
-    check_cuda_f32(name, points=points)
+    check_cuda(name, torch.float32, points=points)
     lib = build.load()
     splits = lib.fd_knn_splits(N, k)
     if splits < 1:

@@ -4,7 +4,8 @@ gradient of the JAX package.
 Kernels: `csrc/maxpool3x3s2.cu`. `maxpool3x3s2_fwd` replaces the TPU kernel
 `fusiondepth_tpu/ops/pallas_pool.py::_pool_fwd` and `maxpool3x3s2_bwd` its
 `_pool_bwd`. Both are bound by bytes and agree bit for bit with their plain
-versions, NaN and ties included. `maxpool3x3s2` is the differentiable op.
+versions, NaN and ties included. Each has a float32 and a bfloat16 entry
+point, picked by the dtype of x. `maxpool3x3s2` is the differentiable op.
 """
 
 from __future__ import annotations
@@ -12,12 +13,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from fusiondepth_torch.kernels import LAUNCHES, build, check_cuda_f32, \
-    on_card
+from fusiondepth_torch.kernels import LAUNCHES, build, check_cuda, \
+    entry_dtype, entry_point, launch_key, on_card, wide
 
 
 def maxpool3x3s2_plain(x: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the forward: torch's own max pool."""
+    """Plain PyTorch version of the forward: torch's own max pool (exact
+    in any dtype)."""
     return F.max_pool2d(x, 3, 2, 1)
 
 
@@ -27,7 +29,11 @@ def maxpool3x3s2_bwd_plain(x: torch.Tensor, y: torch.Tensor,
     from every window in which it equals the window's max y, count being
     the window's number of taps equal to y, pad taps -inf (as
     `fusiondepth_tpu/ops/pooling.py::_pool_even_bwd`). Not torch's
-    autograd, which routes a tie to one argmax."""
+    autograd, which routes a tie to one argmax. A bfloat16 x, y, g is
+    widened to float32, where the ties are compared and g / count summed,
+    and dx rounded once to bfloat16 (`ops/pooling.py:123-158`)."""
+    dtype = x.dtype
+    x, y, g = wide(x), wide(y), wide(g)
     B, C, H, W = x.shape
     Ho, Wo = y.shape[2:]
     xp = F.pad(x, (1, 1, 1, 1), value=float("-inf"))
@@ -44,7 +50,7 @@ def maxpool3x3s2_bwd_plain(x: torch.Tensor, y: torch.Tensor,
         for dx in range(3):
             gp[:, :, dy:dy + 2 * Ho:2, dx:dx + 2 * Wo:2] += torch.where(
                 eqs[dy, dx], gc, 0.0)
-    return gp[:, :, 1:H + 1, 1:W + 1]
+    return gp[:, :, 1:H + 1, 1:W + 1].to(dtype)
 
 
 def _out_shape(x):
@@ -54,20 +60,23 @@ def _out_shape(x):
 
 def maxpool3x3s2_fwd(x: torch.Tensor) -> torch.Tensor:
     """(B, C, H, W) -> (B, C, (H-1)//2 + 1, (W-1)//2 + 1). CPU tensors take
-    the plain version; CUDA tensors take the kernel (float32, contiguous)."""
+    the plain version; CUDA tensors take the kernel (float32 or bfloat16,
+    contiguous)."""
     if x.device.type == "cpu":
         return maxpool3x3s2_plain(x)
-    check_cuda_f32("maxpool3x3s2", x=x)
+    name = "maxpool3x3s2"
+    dt = entry_dtype(name, x)
+    check_cuda(name, dt, x=x)
     if x.dim() != 4 or 0 in x.shape:
         raise ValueError(f"maxpool3x3s2: expected non-empty (B, C, H, W), "
                          f"got {tuple(x.shape)}")
     B, C, H, W = x.shape
     y = torch.empty(_out_shape(x), device=x.device, dtype=x.dtype)
     with on_card(x) as stream:
-        build.check(build.load().fd_maxpool3x3s2_fwd(
+        build.check(entry_point("fd_maxpool3x3s2_fwd", dt)(
             x.data_ptr(), y.data_ptr(), B, C, H, W, stream),
             "fd_maxpool3x3s2_fwd")
-    LAUNCHES["maxpool3x3s2"] += 1
+    LAUNCHES[launch_key(name, dt)] += 1
     return y
 
 
@@ -76,7 +85,8 @@ def maxpool3x3s2_bwd(x: torch.Tensor, y: torch.Tensor,
     """dx (B, C, H, W) from the pool's input x, its output y and the
     cotangent g. H and W must be even (the JAX package's tie-split path;
     the trainer's sizes are multiples of 32). CPU tensors take the plain
-    version; CUDA tensors take the kernel (float32, contiguous)."""
+    version; CUDA tensors take the kernel (float32 or bfloat16,
+    contiguous)."""
     name = "maxpool3x3s2_bwd"
     if x.dim() != 4 or x.shape[2] % 2 or x.shape[3] % 2:
         raise ValueError(f"{name}: the tie-splitting backward takes even "
@@ -86,14 +96,15 @@ def maxpool3x3s2_bwd(x: torch.Tensor, y: torch.Tensor,
                          f"{tuple(g.shape)} do not fit x {tuple(x.shape)}")
     if x.device.type == "cpu":
         return maxpool3x3s2_bwd_plain(x, y, g)
-    check_cuda_f32(name, x=x, y=y, g=g)
+    dt = entry_dtype(name, x)
+    check_cuda(name, dt, x=x, y=y, g=g)
     B, C, H, W = x.shape
     dx = torch.empty_like(x)
     with on_card(x) as stream:
-        build.check(build.load().fd_maxpool3x3s2_bwd(
+        build.check(entry_point("fd_maxpool3x3s2_bwd", dt)(
             x.data_ptr(), y.data_ptr(), g.data_ptr(), dx.data_ptr(), B, C, H,
             W, stream), "fd_maxpool3x3s2_bwd")
-    LAUNCHES[name] += 1
+    LAUNCHES[launch_key(name, dt)] += 1
     return dx
 
 

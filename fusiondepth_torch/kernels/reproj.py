@@ -13,14 +13,18 @@ MAX_FWD_CHANNELS channels (the images are RGB). Bound by bytes.
 Shapes: warped (n, k, B, C, H, W); target (B, C, H, W); the loss map
 (n, k, B, H, W). `reproj_loss` is the differentiable op: the gradient goes
 to `warped` only, since the target is an input frame.
+
+bfloat16: every tensor bfloat16, the moments and the SSIM algebra in
+float32 inside the kernels (as pallas_reproj.py:87-93), the map and the
+warped cotangent rounded once to bfloat16.
 """
 
 from __future__ import annotations
 
 import torch
 
-from fusiondepth_torch.kernels import LAUNCHES, build, check_cuda_f32, \
-    on_card
+from fusiondepth_torch.kernels import LAUNCHES, build, check_cuda, \
+    entry_dtype, entry_point, launch_key, on_card, wide
 from fusiondepth_torch.ops.planes import reprojection_loss_planes
 
 MAX_PLANES = 65535  # n * k * B: the kernels' grid z
@@ -29,8 +33,10 @@ MAX_FWD_CHANNELS = 4  # the forward kernel keeps every channel's windows
 
 def reproj_plain(warped: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """Plain version of the forward: the SSIM + L1 map of
-    `ops/planes.py::reprojection_loss_planes`."""
-    return reprojection_loss_planes(warped, target[None, None], True)
+    `ops/planes.py::reprojection_loss_planes`, in float32 for bfloat16
+    inputs and rounded once to their dtype."""
+    return reprojection_loss_planes(wide(warped), wide(target)[None, None],
+                                    True).to(warped.dtype)
 
 
 def reproj_bwd_plain(warped: torch.Tensor, target: torch.Tensor,
@@ -63,19 +69,19 @@ def _check(name, warped, target, max_channels=None):
 
 def reproj_fwd(warped: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """The loss map (n, k, B, H, W). CPU tensors take the plain version;
-    CUDA tensors take the kernel (float32, contiguous)."""
+    CUDA tensors take the kernel (float32 or bfloat16, contiguous)."""
     if warped.device.type == "cpu":
         return reproj_plain(warped, target)
     name = "reproj"
-    check_cuda_f32(name, warped=warped, target=target)
+    dt = entry_dtype(name, warped)
+    check_cuda(name, dt, warped=warped, target=target)
     n, k, B, C, H, W = _check(name, warped, target, MAX_FWD_CHANNELS)
-    out = torch.empty((n, k, B, H, W), device=warped.device,
-                      dtype=torch.float32)
+    out = torch.empty((n, k, B, H, W), device=warped.device, dtype=dt)
     with on_card(warped) as stream:
-        build.check(build.load().fd_reproj_fwd(
+        build.check(entry_point("fd_reproj_fwd", dt)(
             warped.data_ptr(), target.data_ptr(), out.data_ptr(), n * k, B,
             C, H, W, stream), "fd_reproj_fwd")
-    LAUNCHES[name] += 1
+    LAUNCHES[launch_key(name, dt)] += 1
     return out
 
 
@@ -83,20 +89,21 @@ def reproj_bwd(warped: torch.Tensor, target: torch.Tensor,
                g: torch.Tensor) -> torch.Tensor:
     """d warped (n, k, B, C, H, W) from the cotangent g (n, k, B, H, W).
     CPU tensors take the plain version; CUDA tensors take the kernel
-    (float32, contiguous)."""
+    (float32 or bfloat16, contiguous)."""
     if warped.device.type == "cpu":
         return reproj_bwd_plain(warped, target, g)
     name = "reproj_bwd"
-    check_cuda_f32(name, warped=warped, target=target, g=g)
+    dt = entry_dtype(name, warped)
+    check_cuda(name, dt, warped=warped, target=target, g=g)
     n, k, B, C, H, W = _check(name, warped, target)
     if g.shape != (n, k, B, H, W):
         raise ValueError(f"{name}: g {tuple(g.shape)} does not fit")
     dw = torch.empty_like(warped)
     with on_card(warped) as stream:
-        build.check(build.load().fd_reproj_bwd(
+        build.check(entry_point("fd_reproj_bwd", dt)(
             warped.data_ptr(), target.data_ptr(), g.data_ptr(),
             dw.data_ptr(), n * k, B, C, H, W, stream), "fd_reproj_bwd")
-    LAUNCHES[name] += 1
+    LAUNCHES[launch_key(name, dt)] += 1
     return dw
 
 

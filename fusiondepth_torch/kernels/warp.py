@@ -11,14 +11,19 @@ Shapes: coordinates ix, iy (n_src, n_scales, B, H, W) in pixels, already
 clamped to the image (ops/warp.py); sources (n_src, B, C, H, W); output
 (n_src, n_scales, B, C, H, W). `warp` is the differentiable op: gradients
 flow to the coordinates only, since the sources are input frames.
+
+bfloat16: sources, output and cotangent bfloat16, the coordinates and
+their gradients float32 (the JAX package casts the grids to float32 before
+its kernel, pallas_warp.py:485-486); the sample is taken in float32 and
+rounded once.
 """
 
 from __future__ import annotations
 
 import torch
 
-from fusiondepth_torch.kernels import LAUNCHES, build, check_cuda_f32, \
-    on_card
+from fusiondepth_torch.kernels import LAUNCHES, build, check_cuda, \
+    entry_dtype, entry_point, launch_key, on_card, wide
 
 
 def _taps(ix, iy, H, W):
@@ -43,7 +48,7 @@ def _corners(ix, iy, sources):
     H, W = sources.shape[-2:]
     k = ix.shape[1]
     x0, y0, x1, y1, wx, wy = _taps(ix, iy, H, W)
-    v = [_gather(sources, k, yi, xi)
+    v = [wide(_gather(sources, k, yi, xi))
          for yi, xi in ((y0, x0), (y0, x1), (y1, x0), (y1, x1))]
     return v, wx, wy
 
@@ -52,18 +57,20 @@ def warp_plain(ix: torch.Tensor, iy: torch.Tensor,
                sources: torch.Tensor) -> torch.Tensor:
     """Plain version of the forward: four corner gathers per output pixel,
     the taps and weights of
-    `fusiondepth_tpu/ops/warp.py::warp_planes_xla`."""
+    `fusiondepth_tpu/ops/warp.py::warp_planes_xla`, in float32 for
+    bfloat16 sources and rounded once to their dtype."""
     (v00, v01, v10, v11), wx, wy = _corners(ix, iy, sources)
     return (v00 * (1 - wx) * (1 - wy) + v01 * wx * (1 - wy)
-            + v10 * (1 - wx) * wy + v11 * wx * wy)
+            + v10 * (1 - wx) * wy + v11 * wx * wy).to(sources.dtype)
 
 
 def warp_bwd_plain(ix: torch.Tensor, iy: torch.Tensor, sources: torch.Tensor,
                    g: torch.Tensor):
     """Plain version of the backward: (d ix, d iy), the cotangent g
     (n, k, B, C, H, W) times the derivative of the bilinear sample in x and
-    in y, summed over C."""
+    in y, summed over C (in float32 for a bfloat16 g and sources)."""
     (v00, v01, v10, v11), wx, wy = _corners(ix, iy, sources)
+    g = wide(g)
     gix = (g * ((v01 - v00) * (1 - wy) + (v11 - v10) * wy)).sum(3)
     giy = (g * ((v10 - v00) * (1 - wx) + (v11 - v01) * wx)).sum(3)
     return gix, giy
@@ -83,19 +90,21 @@ def _check(name, ix, iy, sources):
 def warp_fwd(ix: torch.Tensor, iy: torch.Tensor,
              sources: torch.Tensor) -> torch.Tensor:
     """The warped sources (n, k, B, C, H, W). CPU tensors take the plain
-    version; CUDA tensors take the kernel (float32, contiguous)."""
+    version; CUDA tensors take the kernel (float32 coordinates, float32 or
+    bfloat16 sources, contiguous)."""
     if ix.device.type == "cpu":
         return warp_plain(ix, iy, sources)
     name = "warp"
-    check_cuda_f32(name, ix=ix, iy=iy, sources=sources)
+    dt = entry_dtype(name, sources)
+    check_cuda(name, dt, ix=(ix, torch.float32), iy=(iy, torch.float32),
+               sources=sources)
     N, K, B, C, H, W = _check(name, ix, iy, sources)
-    out = torch.empty((N, K, B, C, H, W), device=ix.device,
-                      dtype=torch.float32)
+    out = torch.empty((N, K, B, C, H, W), device=ix.device, dtype=dt)
     with on_card(ix) as stream:
-        build.check(build.load().fd_warp_fwd(
+        build.check(entry_point("fd_warp_fwd", dt)(
             ix.data_ptr(), iy.data_ptr(), sources.data_ptr(), out.data_ptr(),
             N, K, B, C, H, W, stream), "fd_warp_fwd")
-    LAUNCHES[name] += 1
+    LAUNCHES[launch_key(name, dt)] += 1
     return out
 
 
@@ -103,22 +112,25 @@ def warp_bwd(ix: torch.Tensor, iy: torch.Tensor, sources: torch.Tensor,
              g: torch.Tensor):
     """(d ix, d iy), each (n, k, B, H, W), from the cotangent g
     (n, k, B, C, H, W). CPU tensors take the plain version; CUDA tensors
-    take the kernel (float32, contiguous)."""
+    take the kernel (float32 coordinates, g and sources float32 or
+    bfloat16, contiguous)."""
     if ix.device.type == "cpu":
         return warp_bwd_plain(ix, iy, sources, g)
     name = "warp_bwd"
-    check_cuda_f32(name, ix=ix, iy=iy, sources=sources, g=g)
+    dt = entry_dtype(name, sources)
+    check_cuda(name, dt, ix=(ix, torch.float32), iy=(iy, torch.float32),
+               sources=sources, g=g)
     N, K, B, C, H, W = _check(name, ix, iy, sources)
     if g.shape != (N, K, B, C, H, W):
         raise ValueError(f"{name}: g {tuple(g.shape)} does not fit")
     gix = torch.empty_like(ix)
     giy = torch.empty_like(iy)
     with on_card(ix) as stream:
-        build.check(build.load().fd_warp_bwd(
+        build.check(entry_point("fd_warp_bwd", dt)(
             ix.data_ptr(), iy.data_ptr(), sources.data_ptr(), g.data_ptr(),
             gix.data_ptr(), giy.data_ptr(), N, K, B, C, H, W, stream),
             "fd_warp_bwd")
-    LAUNCHES[name] += 1
+    LAUNCHES[launch_key(name, dt)] += 1
     return gix, giy
 
 

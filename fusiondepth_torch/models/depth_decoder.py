@@ -20,6 +20,12 @@ kernel (`kernels/conv3x3.py`), which takes the skip concat
 built. Where a stage has three inputs (upsampled, skip and the refiner's
 map), the skip and the map go to the kernel's second input through one
 torch.cat.
+
+`compute_dtype` (set by FusionNets; None: the parameters' dtype) is the
+dtype the decoder runs in (`fusiondepth_tpu/models/depth_decoder.py:92-95,
+126-129, 205-224`): its inputs and every conv weight are cast to it, the
+biases stay float32 (the kernel adds them in float32, as the Pallas
+kernel does), and the ELUs and heads output it.
 """
 
 from __future__ import annotations
@@ -50,8 +56,8 @@ class ConvBlock(nn.Module):
 
     def forward(self, x0: torch.Tensor,
                 x1: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return conv3x3.conv3x3_reflect(x0, self.conv.weight, self.conv.bias,
-                                       x1, self.elu)
+        return conv3x3.conv3x3_reflect(x0, self.conv.weight.to(x0.dtype),
+                                       self.conv.bias, x1, self.elu)
 
 
 class DeepBlock(nn.Module):
@@ -81,6 +87,7 @@ class DepthDecoder(nn.Module):
         self.cat2end = cat2end
         self.road = road
         self.tanh_head = tanh_head
+        self.compute_dtype: Optional[torch.dtype] = None
         block = DeepBlock if deep else ConvBlock
         map_ch = (3 + (3 if catxy else 0)) if road else 0
         for i in range(4, -1, -1):
@@ -112,7 +119,7 @@ class DepthDecoder(nn.Module):
         if self.road != (depth_maps is not None):
             raise ValueError("depth_maps are given exactly when the decoder "
                              "is built with road=True")
-        dtype = next(self.parameters()).dtype
+        dtype = self.compute_dtype or next(self.parameters()).dtype
 
         def level(i):
             f = input_features[i]

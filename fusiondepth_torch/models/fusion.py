@@ -38,17 +38,45 @@ from fusiondepth_torch.models.resnet import RESNET_FEATURE_CHANNELS, \
     ResnetEncoder
 from fusiondepth_torch.ops.pose import transformation_from_parameters
 
-_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+# compute_dtype -> (parameter dtype, compute dtype). Under bfloat16 the
+# parameters, the BN running statistics and the optimizer state stay
+# float32 and each layer casts to bf16 (`fusiondepth_tpu/models/fusion.py:
+# 33-34`); float64 is the parity tests' precision.
+_DTYPES = {"float32": (torch.float32, torch.float32),
+           "float64": (torch.float64, torch.float64),
+           "bfloat16": (torch.float32, torch.bfloat16)}
+
+
+def _dtypes(cfg: Config):
+    if cfg.compute_dtype not in _DTYPES:
+        raise NotImplementedError(
+            f"compute_dtype={cfg.compute_dtype!r}: the port runs float32, "
+            "bfloat16 or float64")
+    return _DTYPES[cfg.compute_dtype]
 
 
 def model_dtype(cfg: Config) -> torch.dtype:
-    """The port runs float32 (and float64 for the parity tests); its
-    kernels take float32 only, so bfloat16 is refused for now."""
-    if cfg.compute_dtype not in _DTYPES:
+    """The dtype of the parameters, the BN running statistics, the
+    optimizer state and the batches the drivers put on the card: float32,
+    also under bfloat16, or float64."""
+    return _dtypes(cfg)[0]
+
+
+def compute_dtype(cfg: Config) -> torch.dtype:
+    """The dtype the networks and the photometric loss compute in."""
+    return _dtypes(cfg)[1]
+
+
+def refuse_bf16(cfg: Config, what: str) -> None:
+    """Raise NotImplementedError for compute_dtype="bfloat16" on a path
+    that does not run it yet: `what` (ROADMAP.md section 1, "bf16 for the
+    remaining paths")."""
+    _dtypes(cfg)
+    if cfg.compute_dtype == "bfloat16":
         raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r}: the port runs float32 "
-            "or float64")
-    return _DTYPES[cfg.compute_dtype]
+            f"compute_dtype='bfloat16' with {what}: not ported yet (ROADMAP.md"
+            " section 1, bf16 for the remaining paths); bfloat16 runs "
+            "stage-1 serving and the default stage-1 train step")
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -141,6 +169,12 @@ class FusionNets(nn.Module):
                 raise ValueError(
                     f"unknown pose_model_type {cfg.pose_model_type!r}")
         self.to(device=device, dtype=model_dtype(cfg))
+        if compute_dtype(cfg) != model_dtype(cfg):
+            # bf16 over float32 parameters; otherwise every module computes
+            # in its parameters' dtype (also after a .double())
+            for m in self.modules():
+                if hasattr(m, "compute_dtype"):
+                    m.compute_dtype = compute_dtype(cfg)
         self.eval()
 
     @property

@@ -8,6 +8,12 @@ are the buffers `running_mean` and `running_var` (the JAX `mean`/`var`).
 The names are torchvision's, so its checkpoints load as they are.
 `momentum` is in the JAX sense: running = m * running + (1 - m) * batch.
 
+Under compute_dtype="bfloat16" (`fusiondepth_tpu/models/norm.py:48-94`)
+the parameters and running statistics stay float32, the batch statistics
+accumulate in float32 over the bf16 input, A and Bc are computed in
+float32 and cast to the input's dtype, and the output is x * A + Bc in
+that dtype.
+
 `running_stats_held` suspends that update while training-mode BNs still
 normalise with their batch statistics: the recompute of a checkpointed
 forward (remat, `training/train_state.py::train_forward`) runs under it,
@@ -50,13 +56,15 @@ class BatchNorm(nn.Module):
         self.stats_held = False  # see running_stats_held
 
     def affine(self, x: torch.Tensor):
-        """(A, Bc), each (C,). In training mode the statistics come from x
-        (B, C, H, W) and update the running ones; otherwise the running
-        statistics are used and x is not read. Under `running_stats_held`
-        the running statistics are left as they are."""
+        """(A, Bc), each (C,), in x's dtype. In training mode the statistics
+        come from x (B, C, H, W), accumulated in float32 at least, and
+        update the running ones; otherwise the running statistics are used
+        and x is not read. Under `running_stats_held` the running
+        statistics are left as they are."""
         if self.training:
-            mean = x.mean(dim=(0, 2, 3))
-            mean2 = (x * x).mean(dim=(0, 2, 3))
+            acc = torch.promote_types(torch.float32, x.dtype)
+            mean = x.mean(dim=(0, 2, 3), dtype=acc)
+            mean2 = (x * x).mean(dim=(0, 2, 3), dtype=acc)
             var = torch.clamp(mean2 - mean * mean, min=0.0)
             if not self.stats_held:
                 with torch.no_grad():
@@ -66,7 +74,7 @@ class BatchNorm(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps) * self.weight
-        return inv, self.bias - mean * inv
+        return inv.to(x.dtype), (self.bias - mean * inv).to(x.dtype)
 
     def forward(self, x: torch.Tensor, return_affine: bool = False):
         """x * A + Bc, or (A, Bc) with `return_affine` for a caller that

@@ -9,7 +9,10 @@
   mean and the same 0.01 scale.
 
 Their convs are plain zero-padded convolutions with bias, left to cuDNN
-on a card as the JAX package leaves them to XLA. Module names are the
+on a card as the JAX package leaves them to XLA. PoseDecoder's run in its
+`compute_dtype` (set by FusionNets; None: the parameters' dtype), over
+float32 parameters under bfloat16, and its poses come out in float32 at
+least (`fusiondepth_tpu/models/pose.py:43-58`). Module names are the
 JAX package's (`squeeze`, `pose_0`..`pose_2`; `conv_0`..`conv_6`,
 `pose_conv`), so `models/jax_weights.py` carries them both ways.
 """
@@ -21,6 +24,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from fusiondepth_torch.models.conv import Conv2d
 from fusiondepth_torch.models.initializers import lecun_normal_
 
 
@@ -33,10 +37,11 @@ class PoseDecoder(nn.Module):
         if num_frames_to_predict_for is None:
             num_frames_to_predict_for = num_input_features - 1
         self.n_pred = num_frames_to_predict_for
-        self.squeeze = nn.Conv2d(num_ch_enc_last, 256, 1)
-        self.pose_0 = nn.Conv2d(num_input_features * 256, 256, 3, 1, 1)
-        self.pose_1 = nn.Conv2d(256, 256, 3, 1, 1)
-        self.pose_2 = nn.Conv2d(256, 6 * self.n_pred, 1)
+        self.compute_dtype: Optional[torch.dtype] = None
+        self.squeeze = Conv2d(num_ch_enc_last, 256, 1)
+        self.pose_0 = Conv2d(num_input_features * 256, 256, 3, 1, 1)
+        self.pose_1 = Conv2d(256, 256, 3, 1, 1)
+        self.pose_2 = Conv2d(256, 6 * self.n_pred, 1)
         lecun_normal_(self, generator)
 
     def forward(self, last_features: Sequence[torch.Tensor],
@@ -49,11 +54,14 @@ class PoseDecoder(nn.Module):
             feats = [last_features[0] + beam_last_feature]
         else:
             feats = list(last_features)
-        out = torch.cat([torch.relu(self.squeeze(f)) for f in feats], 1)
+        dtype = self.compute_dtype or self.squeeze.weight.dtype
+        out = torch.cat([torch.relu(self.squeeze(f.to(dtype)))
+                         for f in feats], 1)
         out = torch.relu(self.pose_0(out))
         out = torch.relu(self.pose_1(out))
         out = self.pose_2(out).mean(dim=(2, 3))
-        out = 0.01 * out.reshape(-1, self.n_pred, 1, 6)
+        out = 0.01 * out.reshape(-1, self.n_pred, 1, 6).to(
+            torch.promote_types(out.dtype, torch.float32))
         return out[..., :3], out[..., 3:]
 
 

@@ -6,6 +6,12 @@ layout flags (`fold64_encoder`, `fold_stem`, `s2d_stem`, `pack2_encoder`,
 `paired_encoders`) only re-lay the same math out for the TPU and keep the
 same parameters, so the port accepts them and computes the generic math.
 
+`compute_dtype` (set by FusionNets; None: the parameters' dtype) is the
+dtype the encoder runs in: the normalised input is cast to it, and every
+conv casts its weight to it (models/conv.py; `fusiondepth_tpu/models/
+resnet.py:63-71`, `:449`), so under bfloat16 the convs, the BN affines,
+the stem pool and the residual adds run in bf16 over float32 parameters.
+
 Returns the 5-level pyramid [stem relu, layer1..layer4] with channels
 RESNET_FEATURE_CHANNELS[depth]. Parameter names are torchvision's
 (`layer1.0.conv1.weight`, `layer2.0.downsample.1.running_var`, ...), so a
@@ -20,6 +26,7 @@ import torch
 from torch import nn
 
 from fusiondepth_torch.kernels import conv3x3
+from fusiondepth_torch.models.conv import Conv2d
 from fusiondepth_torch.models.initializers import lecun_normal_
 from fusiondepth_torch.models.norm import BatchNorm
 from fusiondepth_torch.ops.pooling import max_pool_3x3s2
@@ -41,10 +48,10 @@ RESNET_FEATURE_CHANNELS = {
 }
 
 
-def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
+def _conv(cin: int, cout: int, k: int, stride: int = 1) -> Conv2d:
     # no default init: lecun_normal_ writes every conv weight of the
     # encoder right after it is built
-    return nn.utils.skip_init(nn.Conv2d, cin, cout, k, stride,
+    return nn.utils.skip_init(Conv2d, cin, cout, k, stride,
                               padding=k // 2, bias=False)
 
 
@@ -76,9 +83,10 @@ class BasicBlock(nn.Module):
 
     def forward(self, x):
         if self.fused:
-            c1 = conv3x3.conv3x3_zero_act(x, self.conv1.weight)
+            c1 = conv3x3.conv3x3_zero_act(x, self.conv1.weight.to(x.dtype))
             a1, b1 = self.bn1(c1, return_affine=True)
-            c2 = conv3x3.conv3x3_zero_act(c1, self.conv2.weight, a1, b1)
+            c2 = conv3x3.conv3x3_zero_act(c1, self.conv2.weight.to(x.dtype),
+                                          a1, b1)
             a2, b2 = self.bn2(c2, return_affine=True)
             return torch.relu(_affine(c2, a2, b2) + x)
         y = torch.relu(self.bn1(self.conv1(x)))
@@ -129,6 +137,7 @@ class ResnetEncoder(nn.Module):
         self.depth = depth
         self.in_channels = in_channels
         self.normalize_input = normalize_input
+        self.compute_dtype: Optional[torch.dtype] = None
         bottleneck = depth > 34
         self.conv1 = _conv(in_channels, 64, 7, 2)
         self.bn1 = BatchNorm(64)
@@ -151,7 +160,7 @@ class ResnetEncoder(nn.Module):
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         if self.normalize_input:
             x = (x - 0.45) / 0.225
-        x = x.to(self.conv1.weight.dtype)
+        x = x.to(self.compute_dtype or self.conv1.weight.dtype)
         y = torch.relu(self.bn1(self.conv1(x)))
         feats = [y]
         y = max_pool_3x3s2(y)

@@ -36,10 +36,16 @@ def project_3d(points: torch.Tensor, K: torch.Tensor, T: torch.Tensor,
     """Camera points (B, H, W, 3) through pose T and intrinsics K (B, 4, 4)
     -> normalized sampling coordinates (B, H, W, 2) in [-1, 1]."""
     B, H, W, _ = points.shape
-    P = (K @ T)[:, :3, :]
-    cam = torch.einsum("bij,bhwj->bhwi", P[:, :, :3].to(points.dtype),
-                       points)
-    cam = cam + P[:, None, None, :, 3].to(points.dtype)
+    P = (K @ T)[:, :3, :].to(points.dtype)
+    # the products and the translation summed in float32 at least and
+    # rounded once to the points' dtype, as XLA fuses the JAX package's
+    # add into its einsum's output: under bfloat16 a rounding of the
+    # product alone (~depth x 2^-9) would swamp the translation, the pose's
+    # parallax, and with it the depth's gradient
+    acc = torch.promote_types(points.dtype, torch.float32)
+    cam = (torch.einsum("bij,bhwj->bhwi", P[:, :, :3].to(acc),
+                        points.to(acc))
+           + P[:, None, None, :, 3].to(acc)).to(points.dtype)
     xy = cam[..., :2] / (cam[..., 2:3] + eps)
     scale = torch.tensor([W - 1, H - 1], dtype=points.dtype,
                          device=points.device)

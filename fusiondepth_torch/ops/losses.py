@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from fusiondepth_torch.kernels import reproj as reproj_kernel
+from fusiondepth_torch.ops.planes import clip, jabs
 
 _C1 = 0.01**2
 _C2 = 0.03**2
@@ -38,7 +39,7 @@ def ssim(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     sigma_xy = exy - mu_x * mu_y
     n = (2 * mu_x * mu_y + _C1) * (2 * sigma_xy + _C2)
     d = (mu_x * mu_x + mu_y * mu_y + _C1) * (sigma_x + sigma_y + _C2)
-    return torch.clamp((1 - n / d) / 2, 0.0, 1.0)
+    return clip((1 - n / d) / 2, 0.0, 1.0)
 
 
 def reprojection_loss(pred: torch.Tensor, target: torch.Tensor,
@@ -49,7 +50,7 @@ def reprojection_loss(pred: torch.Tensor, target: torch.Tensor,
     if use_ssim and pred.device.type == "cuda":
         return reproj_kernel.reproj_loss(pred[:, None].contiguous(),
                                          target)[:, 0]
-    l1 = torch.abs(target - pred).mean(dim=-3)
+    l1 = jabs(target - pred).mean(dim=-3)
     if not use_ssim:
         return l1
     t = target.expand_as(pred)
@@ -71,7 +72,13 @@ def si_loss(depth: torch.Tensor, ref_depth: torch.Tensor,
     Valid pixels: ref > min_d, depth in (min_d, max_d), |depth - ref| <
     threshold. loss = sqrt(mean(d^2) - si_var * mean(d)^2) * scale over
     them, d = log(depth) - log(ref); 0 when no pixel is valid. Callers
-    apply the reference's metric factor (depth * 26) first."""
+    apply the reference's metric factor (depth * 26) first. Computed in
+    float32 at least (a bfloat16 depth is widened first, as
+    `fusiondepth_tpu/ops/losses.py:67-69` does)."""
+    acc = torch.promote_types(torch.promote_types(depth.dtype,
+                                                  ref_depth.dtype),
+                              torch.float32)
+    depth, ref_depth = depth.to(acc), ref_depth.to(acc)
     valid = ((ref_depth > min_d) & (depth < max_d) & (depth > min_d)
              & (torch.abs(depth - ref_depth) < threshold))
     w = valid.to(depth.dtype)

@@ -15,15 +15,21 @@ from __future__ import annotations
 import torch
 
 from fusiondepth_torch.kernels import warp as warp_kernel
+from fusiondepth_torch.ops.planes import clip
 
 BACKENDS = ("banded", "gather")
 
 
 def pixel_coords(grids: torch.Tensor, H: int, W: int):
     """Normalized grid coords -> pixel coords (ix, iy), each
-    (n, k, B, H, W), clamped to the image (border padding)."""
-    ix = torch.clamp(((grids[..., 0] + 1.0) * W - 1.0) * 0.5, 0.0, W - 1)
-    iy = torch.clamp(((grids[..., 1] + 1.0) * H - 1.0) * 0.5, 0.0, H - 1)
+    (n, k, B, H, W), clamped to the image (border padding) as
+    `fusiondepth_tpu/ops/warp.py:76-77` clips them (the gradient halved on
+    the border, `ops/planes.py::clip`), in float32 at least: a
+    bfloat16 grid is widened first, as the JAX wrapper casts it (:74-75,
+    `ops/pallas_warp.py:485-486`)."""
+    grids = grids.to(torch.promote_types(grids.dtype, torch.float32))
+    ix = clip(((grids[..., 0] + 1.0) * W - 1.0) * 0.5, 0.0, W - 1)
+    iy = clip(((grids[..., 1] + 1.0) * H - 1.0) * 0.5, 0.0, H - 1)
     return ix.contiguous(), iy.contiguous()
 
 

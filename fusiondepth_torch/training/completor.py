@@ -23,7 +23,8 @@ import torch
 from fusiondepth_torch.config import Config
 from fusiondepth_torch.data.loader import DataLoader
 from fusiondepth_torch.data.prefetch import prefetch_to_device
-from fusiondepth_torch.models.fusion import FusionNets, model_dtype
+from fusiondepth_torch.models.fusion import FusionNets, model_dtype, \
+    refuse_bf16
 from fusiondepth_torch.models.pretrained import apply_pretrained
 from fusiondepth_torch.ops.depth import disp_to_depth
 from fusiondepth_torch.ops.losses import si_loss
@@ -137,6 +138,7 @@ class Completor:
             cfg = cfg.replace(height=192, width=640)
         cfg = cfg.replace(num_layers=cfg.completion_num_layers,
                           num_epochs=cfg.completion_num_epochs)
+        refuse_bf16(cfg, "the completor")
         check_train_supported(cfg)
         check_stage1_variants(cfg, "completor")
         if cfg.grad_accum_steps > 1:

@@ -45,7 +45,11 @@ def predict_disparities(cfg: Config, dataset,
                         device: Optional[torch.device] = None):
     """Run the depth branch over `dataset`; returns (disps, gt_depths),
     disps a list of (H, W) arrays. With cfg.post_process each batch runs
-    again mirrored and the two are blended (eval_driver.py:61-69)."""
+    again mirrored and the two are blended (eval_driver.py:61-69). Under
+    compute_dtype="bfloat16" the disparities hold the model's bf16 values
+    as float32 (numpy has no bfloat16; the JAX driver's bf16 arrays are
+    widened to float32 by the evaluation, eval_driver.py:148), and the
+    flip blend runs in float32."""
     if nets is None:
         device = resolve_device(device)
         if not (cfg.load_weights_folder
@@ -57,7 +61,8 @@ def predict_disparities(cfg: Config, dataset,
     @torch.inference_mode()
     def infer(b):
         out = nets.forward_depth(b, train=False)[0][("disp", 0)]
-        return out[..., 0].cpu().numpy()
+        return out[..., 0].to(torch.promote_types(out.dtype, torch.float32)
+                              ).cpu().numpy()
 
     loader = DataLoader(dataset, cfg.eval_batch_size, shuffle=False)
     disps, gts = [], []

@@ -2,7 +2,9 @@
 frozen stage-1 model over a split, unshuffled, and cache raw scale-0
 disparities as inf_depth_{n}beam/{idx}_{side}.npy next to the data, for GDC
 correction and refiner distillation. Counterpart of
-`fusiondepth_tpu/training/infer_driver.py`.
+`fusiondepth_tpu/training/infer_driver.py`. Under compute_dtype="bfloat16"
+the model writes bf16 disparities, cached as float32 as the JAX driver
+stores them (`fusiondepth_tpu/training/infer_driver.py:59-61`).
 """
 
 from __future__ import annotations
@@ -95,7 +97,8 @@ class Infer:
         loader = DataLoader(dataset, self.cfg.eval_batch_size, shuffle=False)
         n = 0
         for bi, batch in enumerate(loader):
-            disp = self.infer(device_batch(batch, self.device)).cpu().numpy()
+            disp = self.infer(device_batch(batch, self.device)).float() \
+                .cpu().numpy()
             for j in range(disp.shape[0]):
                 index = bi * self.cfg.eval_batch_size + j
                 folder, frame_index, side = dataset.parse_line(index)

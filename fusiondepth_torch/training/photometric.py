@@ -138,11 +138,13 @@ def reprojection_maps(warped: torch.Tensor, sources_p: torch.Tensor,
 
 
 def _tie_break(identity: torch.Tensor, noise, si: int, generator):
-    if noise is not None:
-        return identity + noise[si].to(identity.dtype)
-    return identity + torch.randn(identity.shape, generator=generator,
-                                  device=identity.device,
-                                  dtype=identity.dtype) * 1e-5
+    """identity plus the scale's automask noise, drawn in float32 at least
+    and cast to the maps' dtype (photometric.py:254)."""
+    if noise is None:
+        noise = {si: torch.randn(
+            identity.shape, generator=generator, device=identity.device,
+            dtype=torch.promote_types(identity.dtype, torch.float32)) * 1e-5}
+    return identity + noise[si].to(identity.dtype)
 
 
 def _mask_bce(mask: torch.Tensor) -> torch.Tensor:
@@ -260,7 +262,9 @@ def _compute_losses_planes(cfg: Config, batch, outputs, noise, generator):
         if cfg.avg_reprojection:
             reproj = reproj.mean(dim=0, keepdim=True)
         to_optimise = _automask_min(identity, reproj, outputs, scale)
-        loss = loss + to_optimise.mean()
+        # float32 accumulation under bf16 (photometric.py:281-284)
+        loss = loss + to_optimise.mean(
+            dtype=torch.promote_types(to_optimise.dtype, torch.float32))
         total = _finish_scale(cfg, batch, outputs, losses, scale, loss,
                               pyr[scale], total)
     losses["loss"] = total / cfg.num_scales

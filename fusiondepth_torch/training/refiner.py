@@ -32,7 +32,8 @@ from torch import nn
 
 from fusiondepth_torch.config import Config
 from fusiondepth_torch.models.depth_decoder import DepthDecoder
-from fusiondepth_torch.models.fusion import FusionNets, model_dtype
+from fusiondepth_torch.models.fusion import FusionNets, model_dtype, \
+    refuse_bf16
 from fusiondepth_torch.models.resnet import RESNET_FEATURE_CHANNELS
 from fusiondepth_torch.ops.depth import disp_to_depth
 from fusiondepth_torch.ops.geometry import cat_xy
@@ -103,6 +104,7 @@ class RefinerNets(nn.Module):
         super().__init__()
         if generator is None:
             generator = torch.Generator().manual_seed(0)
+        refuse_bf16(cfg, "the refiner")
         self.cfg = cfg
         self.stage1 = FusionNets(cfg, device=device, generator=generator)
         self.stage1.requires_grad_(cfg.train_entire_net)

@@ -32,7 +32,7 @@ import torch
 from fusiondepth_torch.config import Config
 from fusiondepth_torch.data.loader import DataLoader
 from fusiondepth_torch.data.prefetch import prefetch_to_device
-from fusiondepth_torch.models.fusion import model_dtype
+from fusiondepth_torch.models.fusion import model_dtype, refuse_bf16
 from fusiondepth_torch.training import checkpoint as ckpt
 from fusiondepth_torch.training.evaluation import evaluate_disparities
 from fusiondepth_torch.training.infer_driver import device_batch, \
@@ -58,6 +58,7 @@ class Refiner:
                 "yet; use the JAX package's refiner")
         # the reference forces these on (refiner.py:29-30)
         cfg = cfg.replace(clone_gdc=True, refine_2d=True)
+        refuse_bf16(cfg, "the refiner")
         check_train_supported(cfg)
         check_stage1_variants(cfg, "refiner")
         self.cfg = cfg

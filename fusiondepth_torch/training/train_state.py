@@ -15,7 +15,11 @@ in the backward instead of kept. The recompute runs with the BN
 running-statistics update held (`models/norm.py::running_stats_held`), so
 the statistics move once a step.
 
-Not ported yet: bfloat16 compute (`models/fusion.py::model_dtype`).
+Under compute_dtype="bfloat16" the nets and the loss compute in bf16
+over float32 parameters (`models/fusion.py::compute_dtype`): the
+gradients arrive float32 at the float32 leaves, and Adam and its state
+stay float32, as in the JAX package. bfloat16 runs the default step; the
+training variants and remat refuse it (`check_train_supported`).
 """
 
 from __future__ import annotations
@@ -27,7 +31,8 @@ import torch
 import torch.utils.checkpoint
 
 from fusiondepth_torch.config import Config
-from fusiondepth_torch.models.fusion import FusionNets, model_dtype
+from fusiondepth_torch.models.fusion import FusionNets, model_dtype, \
+    refuse_bf16
 from fusiondepth_torch.models.norm import running_stats_held
 from fusiondepth_torch.training.photometric import (
     compute_losses,
@@ -36,9 +41,21 @@ from fusiondepth_torch.training.photometric import (
 
 
 def check_train_supported(cfg: Config) -> None:
-    """Raise NotImplementedError for the train option the port lacks:
-    bfloat16."""
-    model_dtype(cfg)
+    """Raise NotImplementedError for the train options the port lacks:
+    compute_dtype="bfloat16" with any stage-1 training variant or remat
+    (bfloat16 trains the default step only)."""
+    options = [name for name, on in (
+        ("v1_multiscale", cfg.v1_multiscale),
+        ("use_stereo", cfg.use_stereo or "s" in cfg.frame_ids),
+        ("predictive_mask", cfg.predictive_mask),
+        (f"pose_model_type={cfg.pose_model_type!r}",
+         cfg.pose_model_type != "separate_resnet"),
+        (f"pose_model_input={cfg.pose_model_input!r}",
+         cfg.pose_model_input != "pairs"),
+        ("remat", cfg.remat)) if on]
+    model_dtype(cfg)  # an unknown compute_dtype raises
+    if options:
+        refuse_bf16(cfg, "the training options " + ", ".join(options))
 
 
 def check_stage1_variants(cfg: Config, driver: str) -> None:

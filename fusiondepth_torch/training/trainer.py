@@ -16,8 +16,10 @@ runs ahead of the step in a thread (data/prefetch.py) with pinned,
 non-blocking uploads; losses are read back only every log_frequency steps.
 Every stage-1 training variant of the JAX package trains here
 (v1_multiscale, use_stereo, predictive_mask, the posecnn and shared pose
-types, pose_model_input="all") and remat; data parallelism (use_mesh,
-several processes) and bfloat16 are not ported yet. With save_sample or
+types, pose_model_input="all") and remat. compute_dtype="bfloat16" trains
+the default step in bf16 over float32 parameters, BN statistics and Adam
+state (the variants and remat refuse it); data parallelism (use_mesh,
+several processes) is not ported yet. With save_sample or
 visualize, `validate` logs the first batch's frame-0 disparity and colour
 image (PNGs next to the metrics), as the JAX trainer does.
 """

@@ -4,7 +4,8 @@
 
 Builds `fusiondepth_torch/kernels/csrc` ("this") and each OTHER_CSRC (a
 directory of `.cu` files with the same C entry points, at least
-`maxpool3x3s2.cu`, `reproj.cu`, `knn.cu` and `warp.cu`: the parent
+`maxpool3x3s2.cu`, `reproj.cu`, `knn.cu` and `warp.cu`, with the
+`dtype.cuh` they include where they are this tree's or later: the parent
 commit's, unpacked with `git archive`, or a variant of this tree's) into
 libraries of their own, every `nvcc` started together, and prints each
 tree's registers and SASS loop lengths of the kernels of LOOP_KERNELS

@@ -35,6 +35,9 @@ def test_command_line_and_set_overrides():
     assert bench.peak_fp32_tflops("NVIDIA H100 80GB HBM3") == 66.9
     assert bench.peak_fp32_tflops("NVIDIA H100 PCIe") == 51.2
     assert bench.peak_fp32_tflops("cpu") is None
+    assert bench.peak_tflops("NVIDIA H100 80GB HBM3", "bfloat16") == 989.0
+    assert bench.peak_tflops("NVIDIA H100 80GB HBM3", "float32") == 66.9
+    assert bench.peak_tflops("NVIDIA H100 PCIe", "bfloat16") == 756.0
 
 
 def test_config1_prints_one_json_line_on_the_cpu(capsys):
@@ -52,6 +55,18 @@ def test_config1_prints_one_json_line_on_the_cpu(capsys):
     assert r["value"] == pytest.approx(1e3 / ms["median"])
     assert r["trials"] == 2 and r["flops_per_step"] > 0
     assert r["weights_init"] == "random" and r["device_kind"] == "cpu"
+
+
+def test_config1_bf16_names_its_dtype(capsys):
+    """--set compute_dtype=bfloat16 runs the bf16 forward (no new flag);
+    the line says which dtype its MFU is against."""
+    assert bench.main(["--config", "1", "--device", "cpu", "--trials", "1",
+                       "--set", "height=64", "--set", "width=96", "--set",
+                       "weights_init=scratch", "--set",
+                       "compute_dtype=bfloat16"]) == 0
+    r = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert r["compute_dtype"] == "bfloat16" and r["value"] > 0
+    assert r["flops_per_step"] > 0 and "mfu" not in r  # no CPU peak
 
 
 def test_bench_without_a_card_raises():

@@ -811,7 +811,10 @@ def _reproj_bwd_streamed(warped, target, g):
                     (y2 - my * my) + C2
                 q = A1 * A2 / (B1 * B2)
                 raw = (1 - q) / 2
-                a = torch.where((raw >= 0) & (raw <= 1), -0.5 * 0.85 * Gc, 0.0)
+                # jnp.clip's derivative: 1 inside, 1/2 on a bound
+                clip_d = torch.where((raw > 0) & (raw < 1), 1.0, torch.where(
+                    (raw == 0) | (raw == 1), 0.5, 0.0))
+                a = -0.5 * 0.85 * Gc * clip_d
                 gn = a / (B1 * B2)
                 gd = -gn * q
                 coef = [2 * my * (gn * A2 - gn * A1) + 2 * mx * (gd * B2 - gd * B1),
@@ -824,7 +827,7 @@ def _reproj_bwd_streamed(warped, target, g):
                     smu, sx2, sxy = (w0 * ha[f] + w1 * hb[f] + w2 * hc[f]
                                      for f in range(3))
                     val = (third * third * (smu + 2 * pa * sx2 + T[s] * sxy)
-                           + 0.15 * Gb * torch.sign(pa - T[s]))
+                           + 0.15 * Gb * torch.where(pa > T[s], 1.0, -1.0))
                     out[..., qr, xs[oval]] = val[..., oval]
                 pa, pb, ha, hb, Gb = pb, pc, hb, hc, Gc
     return out

@@ -286,13 +286,47 @@ def test_trainer_steps_checkpoint_and_infer_round_trip(tmp_path):
     assert torch.equal(infer.infer(batch), want)
 
 
-@pytest.mark.parametrize("flag", [
-    dict(compute_dtype="bfloat16"), dict(num_processes=2),
-    dict(use_mesh=True)])
+# the ids the two cases had before bf16 ("flag0") was ported
+@pytest.mark.parametrize("flag", [dict(num_processes=2),
+                                  dict(use_mesh=True)],
+                         ids=["flag1", "flag2"])
 def test_unported_options_raise(flag, tmp_path):
     cfg = Config(num_layers=18, height=64, width=96, batch_size=2,
                  weights_init="scratch", log_dir=str(tmp_path), **flag)
     with pytest.raises(NotImplementedError):
+        Trainer(cfg, train_dataset=SyntheticDataset(cfg, length=2),
+                device="cpu")
+
+
+@pytest.mark.parametrize("driver", ["Refiner", "Completor"])
+def test_bf16_still_refused_by_refiner_and_completor(driver, tmp_path):
+    """compute_dtype="bfloat16" runs stage-1 serving and the default
+    stage-1 train step; the refiner and the completor still refuse it,
+    naming the ROADMAP item, before they build anything."""
+    from fusiondepth_torch.training.completor import Completor
+    from fusiondepth_torch.training.refiner_driver import Refiner
+
+    cfg = Config(num_layers=18, height=64, width=96, batch_size=2,
+                 weights_init="scratch", log_dir=str(tmp_path),
+                 compute_dtype="bfloat16")
+    cls = {"Refiner": Refiner, "Completor": Completor}[driver]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cls(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("flag", [
+    dict(v1_multiscale=True), dict(use_stereo=True),
+    dict(predictive_mask=True, disable_automasking=True),
+    dict(pose_model_type="posecnn"), dict(pose_model_type="shared"),
+    dict(pose_model_input="all"), dict(remat=True)])
+def test_bf16_training_variants_raise(flag, tmp_path):
+    """Under bfloat16 the Trainer takes the default step only: each
+    training variant and remat raise NotImplementedError, naming the
+    option and the ROADMAP item."""
+    cfg = Config(num_layers=18, height=64, width=96, batch_size=2,
+                 weights_init="scratch", log_dir=str(tmp_path),
+                 compute_dtype="bfloat16", **flag)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(cfg, train_dataset=SyntheticDataset(cfg, length=2),
                 device="cpu")
 
