@@ -118,7 +118,23 @@ order, it:
    all-plain, with its peak memory; each bf16 kernel may differ from its
    plain version by one bf16 spacing (BF16_ROUND) beyond its float32
    tolerance, the pools not at all;
-11. times each kernel against its plain version (and one PyTorch call that
+11. data parallelism (`ddp_phase`, BASELINE config 3 over ranks): a gloo
+   world of 2 ranks on the one card (NCCL refuses two ranks on one card)
+   runs one Trainer step (use_mesh) on 6 rows each of a batch-12 global
+   batch through every training kernel, fp32 then bf16
+   (`multichip.step_rank` in spawned processes; each rank's launches
+   counted around its step, every kernel required on every rank, the
+   ranks' parameters equal after it; a rank that fails fails the run),
+   each held against the single-process batch-12 step through the
+   kernels on the same weights and noise (the loss within STEP_LOSS_REL,
+   or STEP_LOSS_REL_BF16; each gradient leaf against a float64 step
+   within STEP_NOISE_X times one process's noise, capped at STEP_GRAD_CAP
+   in fp32; the parameters equal to Adam's step from that gradient; the
+   BN statistics within STEP_GRAD_REL, or BF16_ROUND) and
+   timed with its gradient all-reduce; then an NCCL world of one brought
+   up as the trainer CLI does drives Trainer(use_mesh=True).run_epoch
+   (3 steps at batch 12, every kernel launched) and times a step;
+12. times each kernel against its plain version (and one PyTorch call that
    computes the same function, where there is one; for the KNN, chunked
    cdist + topk, two calls) over the calls of a batch-12 train step (the
    KNN: one GDC frame; one line per call as well), the steps through the
@@ -126,7 +142,7 @@ order, it:
    after warm-up, each pair in the order plain, kernel, kernel, plain;
    checks that two wgrad launches on a batch-12 layer1 call are
    bit-equal;
-12. prints the card's name and power limit (nvidia-smi), then one JSON
+13. prints the card's name and power limit (nvidia-smi), then one JSON
    line {"kernels": [...]} of the 11 kernels and the 10 bf16 entry points
    (those of the bf16 train step, bound at the bf16 tensor-core rate for
    the convs, PEAK_BF16_S; the forward ones also with their serving
@@ -137,7 +153,9 @@ order, it:
    times and bound, a "refine_entire" entry with the train_entire_net
    step's, a "completion_remat" entry with the remat run's launches, and
    for the ten training kernels a "variants" entry
-   (A and B: launches, times and bound; C: launches), then, last,
+   (A and B: launches, times and bound; C: launches) and a "ddp" entry
+   (each rank's launches in the two-rank world, and the NCCL world of
+   one's; the bf16 entry points: the bf16 two-rank world's), then, last,
    {"ok": true, "device": {...}}. After the build it prints what ptxas
    reported for the conv kernels, the pool backward, the warp forward and
    backward, the reprojection-loss forward and backward and
@@ -153,6 +171,7 @@ import contextlib
 import copy
 import json
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -160,7 +179,10 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+from fusiondepth_torch import multichip
 
 from fusiondepth_torch.config import Config
 from fusiondepth_torch.data.calibration import Calibration
@@ -173,7 +195,7 @@ from fusiondepth_torch.kernels import BF16_KERNELS, LAUNCHES, all_plain, \
     build, conv3x3, pool, reset_launches, wrappers
 from fusiondepth_torch.kernels import knn as knn_kernel
 from fusiondepth_torch.models.depth_decoder import ConvBlock
-from fusiondepth_torch.models.fusion import FusionNets
+from fusiondepth_torch.models.fusion import FusionNets, model_dtype
 from fusiondepth_torch.models.norm import BatchNorm
 from fusiondepth_torch.training import checkpoint as ckpt
 from fusiondepth_torch.training.completor import Completor, completion_loss
@@ -183,7 +205,9 @@ from fusiondepth_torch.training.gdc_driver import gdc_one_frame, run_inf_gdc
 from fusiondepth_torch.training.infer_driver import Infer, device_batch
 from fusiondepth_torch.training.refiner import refine_loss
 from fusiondepth_torch.training.refiner_driver import Refiner
-from fusiondepth_torch.training.train_state import loss_fn
+from fusiondepth_torch.parallel import maybe_initialize_distributed
+from fusiondepth_torch.training.train_state import loss_fn, make_optimizer, \
+    train_step
 from fusiondepth_torch.training.trainer import TRAIN_KEYS, Trainer
 
 HEIGHT, WIDTH, FRAMES = 192, 640, 8
@@ -345,6 +369,9 @@ VARIANTS = {
     "C": dict(pose_model_input="all"),
 }
 HELD_VARIANTS = ("A", "B")
+# data parallelism (step 11): a gloo world of 2 ranks on the one card, 6
+# rows of the batch-12 global batch each; timed over 3 more steps
+DDP_WORLD, DDP_TIME_STEPS = 2, 3
 
 
 def emit(**kw):
@@ -2285,6 +2312,190 @@ def bf16_phase(dev, tmp):
     return errs, launches, {k: ktimes[k] for k in BF16_TRAIN_KERNELS}
 
 
+def free_port() -> int:
+    """A free TCP port on localhost, for a process group's coordinator."""
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def ddp_phase(dev, tmp):
+    """Step 11: data parallelism (BASELINE config 3 over ranks). A gloo
+    world of DDP_WORLD ranks, all on `dev` (NCCL refuses two ranks on one
+    card), runs one Trainer step (use_mesh) each on its TRAIN_BATCH /
+    DDP_WORLD rows of a batch-12 global batch through every training
+    kernel (`multichip.step_rank`), in fp32 and then in bf16; each rank's
+    launches counted around its step, every kernel required on every rank,
+    the ranks' parameters and statistics equal after it. Each world is
+    held against the single-process batch-12 step through the kernels on
+    the same weights and noise: the loss within STEP_LOSS_REL
+    (STEP_LOSS_REL_BF16), each all-reduced gradient leaf against a float64
+    step as `hold_step` holds it (the noise of 1 + NOISE_STEPS
+    single-process steps, STEP_GRAD_CAP, in bf16 no cap), the parameters
+    after the step equal to Adam's step from that gradient (torch's Adam
+    in this process, bit for bit), and the BN running statistics after the
+    step within STEP_GRAD_REL (BF16_ROUND) of the single process's. Each world then times
+    DDP_TIME_STEPS more steps and gradient all-reduces. Last, an NCCL
+    world of one, brought up as the trainer CLI does
+    (`maybe_initialize_distributed` with a coordinator on localhost),
+    drives Trainer(use_mesh=True).run_epoch over 36 frames (3 steps at
+    batch 12, counts set to 0 before and read after, every kernel
+    required) and times a step. Returns (launches by path, readings)."""
+    launches, readings = {}, {}
+    card = card_line()
+    for dtype, tag in (("float32", "fp32"), ("bfloat16", "bf16")):
+        kw = dict(num_layers=18, height=HEIGHT, width=WIDTH,
+                  batch_size=TRAIN_BATCH, weights_init="scratch",
+                  log_dir=tmp, model_name=f"smoke_ddp_{tag}",
+                  compute_dtype=dtype)
+        cfg = Config(**kw)
+        bf16 = dtype == "bfloat16"
+        kernels = BF16_TRAIN_KERNELS if bf16 else TRAIN_KERNELS
+        data = SyntheticDataset(cfg, length=TRAIN_BATCH, seed=2)
+        host = collate([data[i] for i in range(TRAIN_BATCH)])
+        nets = seeded_weights(cfg)
+        noise = step_noise(cfg, TRAIN_BATCH, "cpu")
+        spec = os.path.join(tmp, f"ddp_{tag}.pt")
+        torch.save(dict(cfg=kw, weights=nets.state_dict(), batch=host,
+                        noise=noise, time_steps=DDP_TIME_STEPS), spec)
+        t = time.perf_counter()
+        ranks = multichip.spawn(DDP_WORLD, multichip.step_rank, (spec,),
+                                device=str(dev), backend="gloo")
+        world_s = time.perf_counter() - t
+        launches[f"ddp_{tag}"] = [r["launches"] for r in ranks]
+        for i, r in enumerate(ranks):
+            missed = [k for k in kernels if not r["launches"][k]]
+            require(not missed, f"ddp {tag}: rank {i} launched no {missed}")
+        for k, v in ranks[0]["state"].items():
+            require(torch.equal(v, ranks[1]["state"][k]),
+                    f"ddp {tag}: the ranks' {k} differ after the step")
+
+        # the single-process step on the same weights, batch and noise
+        nets = nets.to(dev)
+        big = device_batch(host, dev, TRAIN_KEYS, model_dtype(cfg))
+        noise = [n.to(dev) for n in noise]
+        ref = copy.deepcopy(nets)
+        opt, sched = make_optimizer(cfg, ref, 1000)
+        loss_s = float(train_step(cfg, ref, opt, sched, big,
+                                  noise=noise)["loss"])
+        grads_s = {n: p.grad.detach().clone()
+                   for n, p in ref.named_parameters() if p.grad is not None}
+        nudge = nudged_bf16 if bf16 else nudged
+        noisy = [grads_s] + [step_grads(cfg, nets, nudge(big, s), noise)[1]
+                             for s in range(NOISE_STEPS)]
+        cfg64 = cfg.replace(compute_dtype="float64")
+        ref64, scales = float64_copy(nets, cfg64), {}
+        with all_plain(), summand_scales(ref64, scales):
+            loss_r, grads_r = step_grads(
+                cfg64, ref64, {k: v.double() for k, v in big.items()},
+                [n.double() for n in noise])
+        del ref64
+
+        got = ranks[0]
+        loss_rel = abs(got["loss"] - loss_s) / abs(loss_s)
+        cap = STEP_GRAD_CAP_BF16 if bf16 else STEP_GRAD_CAP
+        grad_rows = []
+        for n, g64 in grads_r.items():
+            r = g64.norm()
+            if n in scales:
+                r = torch.maximum(r, scales[n].norm())
+            r = r.clamp_min(1e-30)
+
+            def to_f64(g):
+                return ((g.to(dev).double() - g64).norm() / r).item()
+
+            noise_n = max(to_f64(g[n]) for g in noisy)
+            limit = max(STEP_GRAD_REL, STEP_NOISE_X * noise_n if cap is None
+                        else min(STEP_NOISE_X * noise_n, cap))
+            grad_rows.append(dict(leaf=n, ddp=to_f64(got["grads"][n]),
+                                  single=to_f64(grads_s[n]), noise=noise_n,
+                                  limit=limit))
+        # Adam's step from the all-reduced gradient, in this process
+        adam = copy.deepcopy(nets)
+        for n, p in adam.named_parameters():
+            p.grad = got["grads"][n].to(dev) if n in got["grads"] else None
+        opt, sched = make_optimizer(cfg, adam, 1000)
+        opt.step()
+        adam_diff = max((p.detach().cpu() - got["state"][n]).abs().max()
+                        .item() for n, p in adam.named_parameters())
+        del adam
+        stats_tol = BF16_ROUND if bf16 else STEP_GRAD_REL
+        state_s = ref.state_dict()
+        stats_rel = max(
+            ((got["state"][k].to(dev) - state_s[k]).norm()
+             / state_s[k].norm().clamp_min(1e-30)).item()
+            for k in state_s if "running_" in k)
+        bad_g = [row for row in grad_rows if row["ddp"] > row["limit"]]
+        worst_g = max(grad_rows, key=lambda row: row["ddp"] / row["limit"])
+        emit(check=f"ddp_step_{tag}_vs_single_process", world=DDP_WORLD,
+             backend="gloo", batch=TRAIN_BATCH, loss=got["loss"],
+             loss_single=loss_s, loss_rel_diff=loss_rel,
+             loss_f64=loss_r, leaves=len(grad_rows),
+             worst_grad_leaf=worst_g["leaf"], its_ddp_vs_f64=worst_g["ddp"],
+             its_single_vs_f64=worst_g["single"], its_limit=worst_g["limit"],
+             params_vs_adam_of_its_gradient=adam_diff,
+             bn_stats_max_rel_diff=stats_rel,
+             tol=[STEP_LOSS_REL_BF16 if bf16 else STEP_LOSS_REL,
+                  STEP_GRAD_REL, STEP_NOISE_X, cap, stats_tol])
+        require(loss_rel <= (STEP_LOSS_REL_BF16 if bf16 else STEP_LOSS_REL),
+                f"ddp {tag}: loss differs from one process by {loss_rel}")
+        require(not bad_g, f"ddp {tag}: gradient leaves off float64 beyond "
+                f"one process's noise: {bad_g[:5]}")
+        require(adam_diff == 0.0, f"ddp {tag}: the parameters after the "
+                f"step are {adam_diff} off Adam's step from its gradient")
+        require(stats_rel <= stats_tol, f"ddp {tag}: BN statistics differ "
+                f"from one process's by {stats_rel}")
+        step_ms = float(np.mean([r["step_ms"] for r in ranks]))
+        ar_ms = float(np.mean([r["grad_all_reduce_ms"] for r in ranks]))
+        readings[f"world2_{tag}"] = dict(step_ms=step_ms,
+                                         grad_all_reduce_ms=ar_ms)
+        emit(timing=f"ddp_step_{tag}", world=DDP_WORLD, backend="gloo",
+             device=str(dev), global_batch=TRAIN_BATCH,
+             ms=step_ms, rank_ms=[r["step_ms"] for r in ranks],
+             grad_all_reduce_ms=ar_ms, all_reduce_share=ar_ms / step_ms,
+             spawn_seconds=world_s, steps=DDP_TIME_STEPS, card=card)
+        del nets, ref, noisy, grads_r, grads_s
+
+    # an NCCL world of one through the trainer CLI's bring-up
+    cfg = Config(num_layers=18, height=HEIGHT, width=WIDTH,
+                 batch_size=TRAIN_BATCH, weights_init="scratch",
+                 log_dir=tmp, num_workers=4, log_frequency=1,
+                 model_name="smoke_ddp_nccl", use_mesh=True,
+                 coordinator_address=f"localhost:{free_port()}",
+                 num_processes=1, process_id=0)
+    require(maybe_initialize_distributed(cfg), "no process group")
+    try:
+        require(dist.get_backend() == "nccl", dist.get_backend())
+        data = SyntheticDataset(cfg, length=TRAIN_FRAMES, seed=2)
+        trainer = Trainer(cfg, train_dataset=data)
+        require(trainer.mesh is not None and trainer.mesh.world == 1
+                and trainer.device == dev, f"mesh {trainer.mesh}")
+        torch.cuda.synchronize()
+        reset_launches()
+        t = time.perf_counter()
+        losses = [float(x) for x in trainer.run_epoch()]
+        torch.cuda.synchronize()
+        launches["ddp_nccl"] = dict(LAUNCHES)
+        emit(phase="trainer_run_epoch_nccl_world_of_one", steps=len(losses),
+             batch=TRAIN_BATCH, seconds=time.perf_counter() - t,
+             losses=losses, launches=launches["ddp_nccl"])
+        require(len(losses) == TRAIN_FRAMES // TRAIN_BATCH
+                and all(np.isfinite(losses)), f"nccl losses {losses}")
+        for name in TRAIN_KERNELS:
+            require(launches["ddp_nccl"][name] > 0,
+                    f"ddp_nccl: kernel {name} was never launched")
+        big = trainer.put_batch(collate([data[i]
+                                         for i in range(TRAIN_BATCH)]))
+        ms = cuda_ms(lambda: trainer.run_step(big, on_device=True), iters=3,
+                     warmup=1)
+        readings["world1_nccl_fp32"] = dict(step_ms=ms)
+        emit(timing="ddp_step_fp32", world=1, backend="nccl",
+             device=str(dev), global_batch=TRAIN_BATCH, ms=ms, card=card)
+    finally:
+        dist.destroy_process_group()
+    return launches, readings
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
@@ -2356,6 +2567,8 @@ def main() -> int:
         launches.update(blaunches)
         times.update(btimes)
         lap("bf16")
+        dlaunches, _ = ddp_phase(dev, tmp)
+        lap("ddp")
     emit(phase_seconds=seconds, build_seconds=build_s,
          total_seconds=time.perf_counter() - t0)
     launches.update(launches_infer)
@@ -2407,6 +2620,14 @@ def main() -> int:
         if name in COMPLETION_KERNELS:
             kernels[-1]["completion_remat"] = {
                 "launches": launches["completion_remat"][name]}
+        if name in TRAIN_KERNELS:
+            kernels[-1]["ddp"] = {
+                "world2_gloo_launches": [r[name]
+                                         for r in dlaunches["ddp_fp32"]],
+                "world1_nccl_launches": dlaunches["ddp_nccl"][name]}
+        if name in BF16_TRAIN_KERNELS:
+            kernels[-1]["ddp"] = {"world2_gloo_launches": [
+                r[name] for r in dlaunches["ddp_bf16"]]}
         if name in BF16_FORWARD_KERNELS:
             kernels[-1]["serving_launches"] = {
                 p: launches[p][name] for p in ("infer_bf16", "predict_bf16")}

@@ -235,12 +235,13 @@ class Config:
     # param tree (tests/test_folded_seam.py). Auto-disabled unless the
     # folded decoder + fold64 encoder are both active and shapes allow.
     folded_seam: bool = True
-    # Multi-host bring-up (SURVEY §5: jax.distributed.initialize + per-host
-    # input sharding; parallel/multihost.py). batch_size stays GLOBAL — each
-    # host loads batch_size / num_processes samples of ITS split slice.
+    # Multi-process bring-up (torch.distributed.init_process_group +
+    # per-process input sharding; parallel/multihost.py). batch_size stays
+    # GLOBAL — each process loads batch_size / num_processes samples of ITS
+    # split slice.
     coordinator_address: Optional[str] = None  # "host:port" of process 0
     num_processes: int = 1
-    process_id: int = -1  # -1 = auto-detect (env/TPU metadata)
+    process_id: int = -1  # -1 = torchrun's RANK from the environment
 
     # ---- derived helpers ----
     @property

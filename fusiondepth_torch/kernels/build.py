@@ -14,11 +14,16 @@ does a launch whose C entry point returns a CUDA error (see `check`).
 Each source is compiled with `-Xptxas -v`; what ptxas reports (registers,
 spills, static shared memory of every kernel) is kept beside the library
 and read back by `ptxas_report`.
+
+Processes that reach `build` together (the ranks of a data-parallel run)
+take a file lock in the build directory: one compiles, the others wait
+and load its library.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import json
@@ -139,9 +144,17 @@ def build(build_dir: Path = BUILD_DIR) -> Path:
     lib = library_path(build_dir)
     if lib.exists():
         return lib
+    build_dir.mkdir(parents=True, exist_ok=True)
+    with open(build_dir / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if not lib.exists():  # else another process built it meanwhile
+            _compile(lib, build_dir)
+    return lib
+
+
+def _compile(lib: Path, build_dir: Path) -> None:
     nvcc = find_nvcc()
     cu, _ = _sources()
-    build_dir.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         objs = [Path(tmp) / f"{src.stem}.o" for src in cu]
         outs = _run_all([(src.name, [nvcc, *COMPILE_FLAGS, "-c", str(src),
@@ -152,7 +165,6 @@ def build(build_dir: Path = BUILD_DIR) -> Path:
         _run_all([("link", [nvcc, *ARCH_FLAGS, "-shared", "-o", str(staged),
                             *map(str, objs)])])
         os.replace(staged, lib)  # atomic: a concurrent builder sees all or none
-    return lib
 
 
 def _report_path(lib: Path) -> Path:

@@ -18,6 +18,16 @@ that dtype.
 normalise with their batch statistics: the recompute of a checkpointed
 forward (remat, `training/train_state.py::train_forward`) runs under it,
 so the running statistics move once a step, as without remat.
+
+`batch_stats_over` makes the training statistics batch-global in a
+data-parallel step (`training/train_state.py::train_step`): GSPMD's
+`jnp.mean` over a sharded batch is a mean over the global batch
+(`fusiondepth_tpu/models/norm.py:66-84`), so the BNs all-reduce
+[sum x, sum x^2, count] in the accumulation dtype over the data group and
+divide by the global count. The running statistics then come out the same
+on every rank. A recompute under remat runs the same all-reduces again,
+in the same order on every rank. Without a group they are the local
+batch's means.
 """
 
 from __future__ import annotations
@@ -26,6 +36,8 @@ import contextlib
 
 import torch
 from torch import nn
+
+from fusiondepth_torch.parallel.collectives import all_reduce_sum
 
 
 @contextlib.contextmanager
@@ -43,6 +55,22 @@ def running_stats_held(module: nn.Module):
             m.stats_held = held
 
 
+@contextlib.contextmanager
+def batch_stats_over(module: nn.Module, group):
+    """The training-mode BatchNorms of `module` take their batch statistics
+    over every rank of the data group `group` while this is open (None:
+    over this process's batch)."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    before = [m.stats_group for m in bns]
+    for m in bns:
+        m.stats_group = group
+    try:
+        yield
+    finally:
+        for m, g in zip(bns, before):
+            m.stats_group = g
+
+
 class BatchNorm(nn.Module):
     def __init__(self, features: int, momentum: float = 0.9,
                  eps: float = 1e-5):
@@ -54,17 +82,22 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
         self.stats_held = False  # see running_stats_held
+        self.stats_group = None  # see batch_stats_over
 
     def affine(self, x: torch.Tensor):
         """(A, Bc), each (C,), in x's dtype. In training mode the statistics
         come from x (B, C, H, W), accumulated in float32 at least, and
         update the running ones; otherwise the running statistics are used
         and x is not read. Under `running_stats_held` the running
-        statistics are left as they are."""
+        statistics are left as they are; under `batch_stats_over` the
+        statistics are those of the data group's global batch."""
         if self.training:
             acc = torch.promote_types(torch.float32, x.dtype)
-            mean = x.mean(dim=(0, 2, 3), dtype=acc)
-            mean2 = (x * x).mean(dim=(0, 2, 3), dtype=acc)
+            if self.stats_group is None:
+                mean = x.mean(dim=(0, 2, 3), dtype=acc)
+                mean2 = (x * x).mean(dim=(0, 2, 3), dtype=acc)
+            else:
+                mean, mean2 = self._global_moments(x, acc)
             var = torch.clamp(mean2 - mean * mean, min=0.0)
             if not self.stats_held:
                 with torch.no_grad():
@@ -75,6 +108,16 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps) * self.weight
         return inv.to(x.dtype), (self.bias - mean * inv).to(x.dtype)
+
+    def _global_moments(self, x: torch.Tensor, acc: torch.dtype):
+        """(mean x, mean x^2) per channel over the group's global batch."""
+        C = x.shape[1]
+        sums = all_reduce_sum(torch.cat([
+            x.sum(dim=(0, 2, 3), dtype=acc),
+            (x * x).sum(dim=(0, 2, 3), dtype=acc),
+            torch.full((1,), x.numel() // C, dtype=acc, device=x.device)]),
+            self.stats_group)
+        return sums[:C] / sums[2 * C], sums[C:2 * C] / sums[2 * C]
 
     def forward(self, x: torch.Tensor, return_affine: bool = False):
         """x * A + Bc, or (A, Bc) with `return_affine` for a caller that

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from fusiondepth_torch.kernels import reproj as reproj_kernel
 from fusiondepth_torch.ops.planes import clip, jabs
+from fusiondepth_torch.parallel.collectives import all_reduce_sum
 
 _C1 = 0.01**2
 _C2 = 0.03**2
@@ -66,7 +67,8 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor,
 
 def si_loss(depth: torch.Tensor, ref_depth: torch.Tensor,
             threshold: float = 5.0, si_var: float = 0.3, min_d: float = 1.0,
-            max_d: float = 80.0, scale: float = 0.1) -> torch.Tensor:
+            max_d: float = 80.0, scale: float = 0.1,
+            group=None) -> torch.Tensor:
     """Scale-invariant log loss of depth against sparse ref_depth.
 
     Valid pixels: ref > min_d, depth in (min_d, max_d), |depth - ref| <
@@ -74,7 +76,12 @@ def si_loss(depth: torch.Tensor, ref_depth: torch.Tensor,
     them, d = log(depth) - log(ref); 0 when no pixel is valid. Callers
     apply the reference's metric factor (depth * 26) first. Computed in
     float32 at least (a bfloat16 depth is widened first, as
-    `fusiondepth_tpu/ops/losses.py:67-69` does)."""
+    `fusiondepth_tpu/ops/losses.py:67-69` does). With a data group
+    (`parallel/collectives.py`) the means are over the valid pixels of the
+    global batch, as GSPMD computes them over a sharded one
+    (`fusiondepth_tpu/ops/losses.py:76-85`): the count and both sums are
+    all-reduced before the division and the sqrt (the mean over ranks of
+    each rank's SI loss is another loss)."""
     acc = torch.promote_types(torch.promote_types(depth.dtype,
                                                   ref_depth.dtype),
                               torch.float32)
@@ -82,13 +89,15 @@ def si_loss(depth: torch.Tensor, ref_depth: torch.Tensor,
     valid = ((ref_depth > min_d) & (depth < max_d) & (depth > min_d)
              & (torch.abs(depth - ref_depth) < threshold))
     w = valid.to(depth.dtype)
-    n = w.sum()
     one = torch.ones((), dtype=depth.dtype, device=depth.device)
     d = torch.log(torch.where(valid, depth, one)) - \
         torch.log(torch.where(valid, ref_depth, one))
+    n, sum_d2, sum_d = all_reduce_sum(
+        torch.stack([w.sum(), (d * d * w).sum(), (d * w).sum()]),
+        group).unbind()
     denom = torch.clamp(n, min=1.0)
-    mean_d2 = (d * d * w).sum() / denom
-    mean_d = (d * w).sum() / denom
+    mean_d2 = sum_d2 / denom
+    mean_d = sum_d / denom
     var = torch.clamp(mean_d2 - si_var * mean_d * mean_d, min=0.0)
     return torch.where(n > 0, torch.sqrt(var) * scale,
                        torch.zeros_like(var))

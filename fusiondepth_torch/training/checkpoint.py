@@ -11,6 +11,10 @@
 `load_checkpoint` also takes JAX variables flattened into a `.npz`
 (keys like "encoder/params/conv1/kernel", `models/jax_weights.flatten`),
 either the file itself or a weights folder holding `variables.npz`.
+
+In a data-parallel run only rank 0 writes (the Trainer calls
+`save_options` and `save_checkpoint` there, then waits for every rank),
+and a resumed run loads on every rank.
 """
 
 from __future__ import annotations
@@ -30,9 +34,10 @@ OPTIMIZER_FILE = "optimizer.pt"
 JAX_FILE = "variables.npz"
 
 
-def _ckpt_dir(log_dir: str, model_name: str, tag: str) -> str:
-    return os.path.abspath(
-        os.path.join(log_dir, model_name, "models", f"weights_{tag}"))
+def checkpoint_dir(cfg: Config, tag: str) -> str:
+    """The weights folder `save_checkpoint(cfg, ..., tag)` writes."""
+    return os.path.abspath(os.path.join(cfg.log_dir, cfg.model_name,
+                                        "models", f"weights_{tag}"))
 
 
 def save_options(cfg: Config) -> None:
@@ -45,7 +50,7 @@ def save_options(cfg: Config) -> None:
 def save_checkpoint(cfg: Config, nets: torch.nn.Module, tag: str,
                     optimizer: Optional[torch.optim.Optimizer] = None,
                     scheduler=None, step: int = 0) -> str:
-    path = _ckpt_dir(cfg.log_dir, cfg.model_name, tag)
+    path = checkpoint_dir(cfg, tag)
     os.makedirs(path, exist_ok=True)
     torch.save(nets.state_dict(), os.path.join(path, MODEL_FILE))
     if optimizer is not None:

@@ -37,6 +37,25 @@ With the posecnn pose type the translation is rescaled by the mean
 inverse depth (reference trainer.py:440-459). With predictive_mask (which
 needs disable_automasking) the learned mask weights the reprojection maps
 and 0.2 x its BCE toward 1 joins the loss (reference trainer.py:531-545).
+
+Under data parallelism (`group`, a data group of W ranks, each holding
+an equal W-th of the global batch or microbatch) the loss is the JAX
+meshed step's, whose batch-axis means GSPMD takes over the global batch:
+- the SI loss is over the valid pixels of the global batch
+  (`ops/losses.py::si_loss` all-reduces its count and sums);
+- the automask tie-break noise is drawn at the global batch's shape from
+  the generator every rank seeds alike (or replayed at that shape), and
+  each rank takes its own rows, so W ranks see the noise one process
+  sees;
+- every other reduction is a mean over the batch of equally sized
+  shards, or stays inside a sample, and so stays local: the automask
+  min's mean (`to_optimise.mean`) and the predictive mask's BCE
+  (`_mask_bce`) are means over (B, H, W) and (B, h, w, c); the
+  avg_reprojection means run over the candidate axis; the smoothness
+  normalizes each image by its own mean before its mean over (B, H, W);
+  posecnn's mean inverse depth is per sample. The gradient all-reduce
+  (`parallel/collectives.py::all_reduce_grads`) averages such a term's
+  gradients over the ranks, which is the gradient of its global mean.
 """
 
 from __future__ import annotations
@@ -60,6 +79,7 @@ from fusiondepth_torch.ops.pose import transformation_from_parameters
 from fusiondepth_torch.ops.resize import resize_antialias
 from fusiondepth_torch.ops.sampling import grid_sample
 from fusiondepth_torch.ops.warp import warp_planes
+from fusiondepth_torch.parallel.collectives import group_rank, group_size
 
 
 def pose_T(cfg: Config, batch: Dict[str, torch.Tensor],
@@ -104,19 +124,22 @@ def generate_images_pred(cfg: Config, batch: Dict[str, torch.Tensor],
 def compute_losses(cfg: Config, batch: Dict[str, torch.Tensor],
                    outputs: Dict[Any, Any],
                    noise: Optional[Sequence[torch.Tensor]] = None,
-                   generator: Optional[torch.Generator] = None
-                   ) -> Dict[str, torch.Tensor]:
+                   generator: Optional[torch.Generator] = None,
+                   group=None) -> Dict[str, torch.Tensor]:
     """Multi-scale photometric + automask + smoothness + SI loss
     (reference trainer.py:490-596), in the formulation that
     generate_images_pred took. The automask tie-break noise added to the
     identity maps at each scale is `noise[i]` for scale i when given (so
     that a test can replay the JAX package's draws; the shape of that
-    scale's identity maps, candidates first), else 1e-5 * N(0, 1) drawn
-    from `generator` (reference trainer.py:549-551)."""
+    scale's identity maps, candidates first, at the global batch), else
+    1e-5 * N(0, 1) drawn from `generator` (reference trainer.py:549-551).
+    `group` is the data group of a data-parallel step (module
+    docstring)."""
     if cfg.v1_multiscale:
         return compute_losses_reference(cfg, batch, outputs, noise,
-                                        generator)
-    return _compute_losses_planes(cfg, batch, outputs, noise, generator)
+                                        generator, group)
+    return _compute_losses_planes(cfg, batch, outputs, noise, generator,
+                                  group)
 
 
 def reprojection_maps(warped: torch.Tensor, sources_p: torch.Tensor,
@@ -137,14 +160,23 @@ def reprojection_maps(warped: torch.Tensor, sources_p: torch.Tensor,
     return reproj_maps, identity_maps
 
 
-def _tie_break(identity: torch.Tensor, noise, si: int, generator):
+def _tie_break(identity: torch.Tensor, noise, si: int, generator, group):
     """identity plus the scale's automask noise, drawn in float32 at least
-    and cast to the maps' dtype (photometric.py:254)."""
+    and cast to the maps' dtype (photometric.py:254). The noise has the
+    global batch's shape (W times identity's batch axis, 1); this rank
+    takes its rows."""
+    world, b = group_size(group), identity.shape[1]
+    shape = (identity.shape[0], b * world) + identity.shape[2:]
     if noise is None:
         noise = {si: torch.randn(
-            identity.shape, generator=generator, device=identity.device,
+            shape, generator=generator, device=identity.device,
             dtype=torch.promote_types(identity.dtype, torch.float32)) * 1e-5}
-    return identity + noise[si].to(identity.dtype)
+    if tuple(noise[si].shape) != shape:
+        raise ValueError(f"automask noise of shape {tuple(noise[si].shape)};"
+                         f" the global batch's maps are {shape}")
+    rank = group_rank(group)
+    return identity + noise[si][:, rank * b:(rank + 1) * b].to(
+        identity.dtype)
 
 
 def _mask_bce(mask: torch.Tensor) -> torch.Tensor:
@@ -169,18 +201,21 @@ def _automask_min(identity, reproj, outputs, scale):
     return to_optimise
 
 
-def _si_term(cfg: Config, batch, disp: torch.Tensor) -> torch.Tensor:
+def _si_term(cfg: Config, batch, disp: torch.Tensor,
+             group) -> torch.Tensor:
     """The SI loss of the scale's disparity (B, H_s, W_s), upsampled to
-    full resolution, against the K-beam LiDAR."""
+    full resolution, against the K-beam LiDAR, over the data group's
+    global batch."""
     _, depth = disp_to_depth(resize_planes(disp, cfg.height, cfg.width),
                              cfg.min_depth, cfg.max_depth)
     # hard-coded metric scale (reference trainer.py:583)
     return si_loss(depth * 26.0, batch["four_beam"][..., 0] * 100.0,
-                   threshold=cfg.gdc_loss_threshold, si_var=cfg.si_var)
+                   threshold=cfg.gdc_loss_threshold, si_var=cfg.si_var,
+                   group=group)
 
 
 def _finish_scale(cfg: Config, batch, outputs, losses, scale, loss,
-                  color, total):
+                  color, total, group):
     """Add the smoothness and SI terms of one scale; returns the total."""
     disp = outputs[("disp", scale)][..., 0]                # (B, Hs, Ws)
     smooth = normalized_smoothness_planes(disp, color)
@@ -188,7 +223,7 @@ def _finish_scale(cfg: Config, batch, outputs, losses, scale, loss,
     total = total + loss
     losses[f"loss/{scale}"] = loss
     if cfg.trainer_siloss and (cfg.trainer_siloss_all_scale or scale == 0):
-        si = _si_term(cfg, batch, disp)
+        si = _si_term(cfg, batch, disp, group)
         total = total + si
         losses[f"loss/si_loss{scale}"] = si
     return total
@@ -233,7 +268,8 @@ def _generate_images_pred_planes(cfg: Config, batch, outputs):
     return outputs
 
 
-def _compute_losses_planes(cfg: Config, batch, outputs, noise, generator):
+def _compute_losses_planes(cfg: Config, batch, outputs, noise, generator,
+                           group):
     losses: Dict[str, torch.Tensor] = {}
     H, W = cfg.height, cfg.width
     automask = not cfg.disable_automasking
@@ -252,7 +288,7 @@ def _compute_losses_planes(cfg: Config, batch, outputs, noise, generator):
             identity = identity_maps
             if cfg.avg_reprojection:
                 identity = identity.mean(dim=0, keepdim=True)
-            identity = _tie_break(identity, noise, si, generator)
+            identity = _tie_break(identity, noise, si, generator, group)
         elif cfg.predictive_mask:
             # the JAX planes path weights every warp by the mask's first
             # channel (photometric.py:255-258)
@@ -266,7 +302,7 @@ def _compute_losses_planes(cfg: Config, batch, outputs, noise, generator):
         loss = loss + to_optimise.mean(
             dtype=torch.promote_types(to_optimise.dtype, torch.float32))
         total = _finish_scale(cfg, batch, outputs, losses, scale, loss,
-                              pyr[scale], total)
+                              pyr[scale], total, group)
     losses["loss"] = total / cfg.num_scales
     return losses
 
@@ -323,7 +359,7 @@ def generate_images_pred_reference(cfg: Config, batch, outputs):
 
 
 def compute_losses_reference(cfg: Config, batch, outputs, noise=None,
-                             generator=None):
+                             generator=None, group=None):
     """The per-scale loss loop of reference trainer.py:490-596 over the
     tensors of generate_images_pred_reference."""
     losses: Dict[str, torch.Tensor] = {}
@@ -343,7 +379,7 @@ def compute_losses_reference(cfg: Config, batch, outputs, noise=None,
                                          target, not cfg.no_ssim)
             if cfg.avg_reprojection:
                 identity = identity.mean(dim=0, keepdim=True)
-            identity = _tie_break(identity, noise, si, generator)
+            identity = _tie_break(identity, noise, si, generator, group)
         elif cfg.predictive_mask:
             # one mask channel per source frame, at the scale's resolution
             mask = outputs["predictive_mask"][("disp", scale)]
@@ -354,6 +390,6 @@ def compute_losses_reference(cfg: Config, batch, outputs, noise=None,
         to_optimise = _automask_min(identity, reproj, outputs, scale)
         loss = loss + to_optimise.mean()
         total = _finish_scale(cfg, batch, outputs, losses, scale, loss,
-                              pyr[scale], total)
+                              pyr[scale], total, group)
     losses["loss"] = total / cfg.num_scales
     return losses

@@ -20,11 +20,22 @@ over float32 parameters (`models/fusion.py::compute_dtype`): the
 gradients arrive float32 at the float32 leaves, and Adam and its state
 stay float32, as in the JAX package. bfloat16 runs the default step; the
 training variants and remat refuse it (`check_train_supported`).
+
+Data parallelism (`group`, a data group of W ranks, `parallel/`): each
+rank steps on its W-th of the global batch, and the step is the JAX
+meshed step's on the global batch. The BatchNorm statistics
+(`models/norm.py::batch_stats_over`) and the SI loss are all-reduced
+inside the forward, the gradients once after the last microbatch, before
+Adam (`parallel/collectives.py::all_reduce_grads`), and the losses
+returned are the global ones. Under microbatching the rank's k-th local
+microbatch is its share of the global k-th (`parallel/mesh.py::
+rank_rows`), whose BN statistics cover those rows only, as in JAX.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -33,7 +44,10 @@ import torch.utils.checkpoint
 from fusiondepth_torch.config import Config
 from fusiondepth_torch.models.fusion import FusionNets, model_dtype, \
     refuse_bf16
-from fusiondepth_torch.models.norm import running_stats_held
+from fusiondepth_torch.models.norm import batch_stats_over, \
+    running_stats_held
+from fusiondepth_torch.parallel.collectives import all_reduce_grads, \
+    all_reduce_mean
 from fusiondepth_torch.training.photometric import (
     compute_losses,
     generate_images_pred,
@@ -119,46 +133,61 @@ def train_forward(cfg: Config, nets: FusionNets,
 
 def loss_fn(cfg: Config, nets: FusionNets, batch: Dict[str, torch.Tensor],
             noise: Optional[Sequence[torch.Tensor]] = None,
-            generator: Optional[torch.Generator] = None
-            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """(loss, losses) of one batch, the nets in training mode."""
+            generator: Optional[torch.Generator] = None,
+            group=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(loss, losses) of one batch, the nets in training mode; `group` is
+    the data group of a data-parallel step (`compute_losses`)."""
     outputs = train_forward(cfg, nets, batch)
     outputs = generate_images_pred(cfg, batch, outputs)
     losses = compute_losses(cfg, batch, outputs, noise=noise,
-                            generator=generator)
+                            generator=generator, group=group)
     return losses["loss"], losses
 
 
 def train_step(cfg: Config, nets: FusionNets, opt: torch.optim.Optimizer,
                sched, batch: Dict[str, torch.Tensor],
                generator: Optional[torch.Generator] = None,
-               noise: Optional[Sequence[torch.Tensor]] = None,
-               loss_of: Callable = loss_fn) -> Dict[str, torch.Tensor]:
+               noise: Optional[Sequence[Any]] = None,
+               loss_of: Callable = loss_fn,
+               group=None) -> Dict[str, torch.Tensor]:
     """One optimization step of `loss_of` (stage 1's `loss_fn` unless
     given, with its signature); returns the losses, detached (reading them
-    is the caller's sync point). `noise` replays the automask noise of a
-    single-microbatch step."""
+    is the caller's sync point). `noise` replays the automask noise: one
+    list of per-scale draws, or under microbatching one such list per
+    microbatch. With a data group (`group`; stage 1's loss only) `batch`
+    is this rank's rows of the global batch (`parallel/mesh.py::
+    shard_batch`) and the step is the global batch's."""
     accum = max(cfg.grad_accum_steps, 1)
+    if group is not None:
+        if loss_of is not loss_fn:
+            raise NotImplementedError("data parallelism runs stage 1's "
+                                      "loss only")
+        loss_of = functools.partial(loss_fn, group=group)
     opt.zero_grad(set_to_none=True)
-    if accum == 1:
-        loss, losses = loss_of(cfg, nets, batch, noise, generator)
-        loss.backward()
-        losses = {k: v.detach() for k, v in losses.items()}
-    else:
-        if noise is not None:
-            raise ValueError("noise replays a single-microbatch step")
-        B = next(iter(batch.values())).shape[0]
-        if B % accum:
-            raise ValueError(f"batch {B} does not split into {accum} "
-                             "microbatches")
-        mb = B // accum
-        losses = {}
-        for i in range(accum):
-            part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-            loss, ls = loss_of(cfg, nets, part, None, generator)
-            (loss / accum).backward()
-            for k, v in ls.items():
-                losses[k] = losses.get(k, 0.0) + v.detach() / accum
+    with batch_stats_over(nets, group):
+        if accum == 1:
+            loss, losses = loss_of(cfg, nets, batch, noise, generator)
+            loss.backward()
+            losses = {k: v.detach() for k, v in losses.items()}
+        else:
+            if noise is not None and len(noise) != accum:
+                raise ValueError(f"noise for {len(noise)} microbatches; "
+                                 f"the step has {accum}")
+            B = next(iter(batch.values())).shape[0]
+            if B % accum:
+                raise ValueError(f"batch {B} does not split into {accum} "
+                                 "microbatches")
+            mb = B // accum
+            losses = {}
+            for i in range(accum):
+                part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+                loss, ls = loss_of(cfg, nets, part,
+                                   None if noise is None else noise[i],
+                                   generator)
+                (loss / accum).backward()
+                for k, v in ls.items():
+                    losses[k] = losses.get(k, 0.0) + v.detach() / accum
+    all_reduce_grads(nets.parameters(), group)
     opt.step()
     sched.step()
-    return losses
+    return all_reduce_mean(losses, group)

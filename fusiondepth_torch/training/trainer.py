@@ -11,15 +11,26 @@ best-AbsRel checkpointing.
 
 Runs on one card (cuda:0 unless `device` names another; device="cpu" for
 the tests) in the config's dtype, float32 by default with TF32 off, so
-that float32 means float32 in cuDNN's convolutions too. The host feed
+that float32 means float32 in cuDNN's convolutions too. Data-parallel
+over processes (`use_mesh`, or a process group of several ranks,
+`parallel/`), as the JAX trainer shards over its mesh: each rank runs on
+its card (cuda:LOCAL_RANK unless `device` names one), loads its W-th of
+the global batch (`local_batch_size`) from its slice of the split
+(`shard_lines`; a dataset handed in is strided the same way,
+`RankShard`), and steps with the batch-global statistics, SI loss and
+gradient all-reduce of `training/train_state.py`. The nets start equal on
+every rank (`broadcast_module` after init, pretrained weights or a
+resume); only rank 0 writes the options and checkpoints. Every rank
+validates on the whole val split, as in JAX. steps_per_epoch is the JAX
+package's: the local dataset's length over the global batch. The host feed
 runs ahead of the step in a thread (data/prefetch.py) with pinned,
 non-blocking uploads; losses are read back only every log_frequency steps.
 Every stage-1 training variant of the JAX package trains here
 (v1_multiscale, use_stereo, predictive_mask, the posecnn and shared pose
-types, pose_model_input="all") and remat. compute_dtype="bfloat16" trains
-the default step in bf16 over float32 parameters, BN statistics and Adam
-state (the variants and remat refuse it); data parallelism (use_mesh,
-several processes) is not ported yet. With save_sample or
+types, pose_model_input="all") and remat, on one card or several.
+compute_dtype="bfloat16" trains the default step in bf16 over float32
+parameters, BN statistics and Adam state (the variants and remat refuse
+it). With save_sample or
 visualize, `validate` logs the first batch's frame-0 disparity and colour
 image (PNGs next to the metrics), as the JAX trainer does.
 """
@@ -38,6 +49,16 @@ from fusiondepth_torch.data.loader import DataLoader
 from fusiondepth_torch.data.prefetch import prefetch_to_device
 from fusiondepth_torch.models.fusion import FusionNets, model_dtype
 from fusiondepth_torch.models.pretrained import apply_pretrained
+from fusiondepth_torch.parallel import (
+    barrier,
+    broadcast_module,
+    default_device,
+    local_batch_size,
+    make_mesh,
+    process_count,
+    process_index,
+    shard_lines,
+)
 from fusiondepth_torch.training import checkpoint as ckpt
 from fusiondepth_torch.training.evaluation import evaluate_disparities
 from fusiondepth_torch.training.infer_driver import (
@@ -56,14 +77,24 @@ TRAIN_KEYS = ("color", "color_aug", "two_channel", "four_beam", "K",
               "inv_K", "stereo_T")
 
 
+class RankShard:
+    """Rank `rank`'s strided slice of a dataset of `world` ranks: the
+    samples `shard_lines` would give it of the dataset's lines."""
+
+    def __init__(self, dataset, rank: int, world: int):
+        self.dataset = dataset
+        self.index = shard_lines(range(len(dataset)), rank, world)
+
+    def __len__(self):
+        return len(self.index)
+
+    def __getitem__(self, i):
+        return self.dataset[self.index[i]]
+
+
 class Trainer:
     def __init__(self, cfg: Config, train_dataset=None, val_dataset=None,
-                 device=None):
-        if cfg.use_mesh or cfg.num_processes > 1 \
-                or cfg.coordinator_address:
-            raise NotImplementedError(
-                "use_mesh / multi-process training: the port trains on one "
-                "card; data parallelism is not ported yet")
+                 device=None, use_mesh: Optional[bool] = None):
         cfg = cfg.replace(num_epochs=max((8 * 17) // cfg.batch_size, 1))
         if cfg.use_stereo and "s" not in cfg.frame_ids:
             # stereo adds the opposite-side frame (reference
@@ -73,7 +104,30 @@ class Trainer:
             raise ValueError("height/width must be multiples of 32")
         check_train_supported(cfg)
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if device is not None
+                                     else default_device())
+        # data parallelism: cfg.use_mesh / cfg.mesh_shape (the ctor arg
+        # overrides), or several processes; one process per card, each
+        # holding its W-th of the global batch
+        if use_mesh is None:
+            use_mesh = cfg.use_mesh
+        self.process_count = process_count()
+        self.is_lead_host = process_index() == 0
+        self.mesh = (make_mesh(cfg.mesh_shape, self.device)
+                     if use_mesh or self.process_count > 1 else None)
+        self.group = None if self.mesh is None else self.mesh.group
+        if self.mesh is not None:
+            n_data = self.mesh.shape["data"]
+            if cfg.batch_size % n_data:
+                raise ValueError(
+                    f"batch_size {cfg.batch_size} not divisible by the "
+                    f"mesh's data axis ({n_data} ranks)")
+            if cfg.batch_size % (n_data * max(cfg.grad_accum_steps, 1)):
+                raise NotImplementedError(
+                    f"batch_size {cfg.batch_size} over {n_data} ranks x "
+                    f"{cfg.grad_accum_steps} microbatches: each rank's "
+                    "microbatches must split the global ones evenly (the "
+                    "JAX package reshards; ROADMAP.md §1)")
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
@@ -88,6 +142,9 @@ class Trainer:
         self.val_dataset = val_dataset
         if train_dataset is None and cfg.dataset in ("kitti", "kitti_odom"):
             self._build_kitti_datasets()
+        elif train_dataset is not None and self.process_count > 1:
+            self.train_dataset = RankShard(train_dataset, process_index(),
+                                           self.process_count)
 
         steps_per_epoch = (
             max(len(self.train_dataset) // cfg.batch_size, 1)
@@ -98,11 +155,15 @@ class Trainer:
             cfg.seed + 1)
 
         self.log_path = os.path.join(cfg.log_dir, cfg.model_name)
-        self.loggers = {mode: MetricLogger(self.log_path, mode, use_tb=False)
+        # rank 0 logs under log_path, every other rank under rank<r>/
+        log_path = self.log_path if self.is_lead_host else os.path.join(
+            self.log_path, f"rank{process_index()}")
+        self.loggers = {mode: MetricLogger(log_path, mode, use_tb=False)
                         for mode in ("train", "val")}
         self.loggers["train"].add_watch("loss", "nan",
                                         title="non-finite training loss")
-        ckpt.save_options(cfg)
+        if self.is_lead_host:
+            ckpt.save_options(cfg)
 
         self.step = 0
         if cfg.train_load_weights_folder:
@@ -115,6 +176,7 @@ class Trainer:
                 cfg.train_load_weights_folder, self.nets, self.optimizer,
                 self.scheduler, models_to_load=to_load)
             self.step = int(meta.get("step", 0))
+        broadcast_module(self.nets, self.group)
         self.best_absrel = float("inf")
         self.epoch = 0
         self._t_start = time.time()
@@ -133,8 +195,10 @@ class Trainer:
                else KITTIRAWDataset)
         split_dir = os.path.join(os.path.dirname(__file__), "..", "..",
                                  "splits")
-        train_files = readlines(
-            os.path.join(split_dir, cfg.split, "train_files.txt"))
+        # each process reads a disjoint strided slice of the split
+        # (parallel/multihost.py); single-process this is identity
+        train_files = shard_lines(readlines(
+            os.path.join(split_dir, cfg.split, "train_files.txt")))
         test_files = readlines(
             os.path.join(split_dir, "eigen", "test_files.txt"))
         ext = ".png" if cfg.png else ".jpg"
@@ -148,7 +212,9 @@ class Trainer:
                                cfg=cfg)
 
     def _loader(self, dataset, shuffle: bool):
-        return DataLoader(dataset, self.cfg.batch_size, shuffle=shuffle,
+        # cfg.batch_size is the GLOBAL batch; each process loads its share
+        bs = local_batch_size(self.cfg.batch_size, self.process_count)
+        return DataLoader(dataset, bs, shuffle=shuffle,
                           drop_last=shuffle, num_workers=self.cfg.num_workers)
 
     def put_batch(self, batch) -> Dict[str, torch.Tensor]:
@@ -157,12 +223,15 @@ class Trainer:
 
     # ---- training ----
 
-    def run_step(self, batch,
-                 on_device: bool = False) -> Dict[str, torch.Tensor]:
-        """One train step; returns its losses (tensors on the card)."""
+    def run_step(self, batch, on_device: bool = False,
+                 noise=None) -> Dict[str, torch.Tensor]:
+        """One train step on this rank's batch; returns the global batch's
+        losses (tensors on the card). `noise` replays the automask noise
+        (`train_step`)."""
         db = batch if on_device else self.put_batch(batch)
         losses = train_step(self.cfg, self.nets, self.optimizer,
-                            self.scheduler, db, generator=self.generator)
+                            self.scheduler, db, generator=self.generator,
+                            noise=noise, group=self.group)
         self.step += 1
         return losses
 
@@ -180,18 +249,25 @@ class Trainer:
                 loss = float(losses["loss"])  # the sync point
                 dt = time.time() - t_last
                 eps = n_last / max(dt, 1e-9)
-                print(f"epoch {self.epoch:3d} | step {self.step:6d} | "
-                      f"loss {loss:.4f} | {eps:7.1f} ex/s | "
-                      f"elapsed {sec_to_hm_str(time.time() - self._t_start)}",
-                      flush=True)
+                if self.is_lead_host:
+                    print(f"epoch {self.epoch:3d} | step {self.step:6d} | "
+                          f"loss {loss:.4f} | {eps:7.1f} ex/s | elapsed "
+                          f"{sec_to_hm_str(time.time() - self._t_start)}",
+                          flush=True)
                 self.loggers["train"].log_scalars(
                     self.step, {"loss": loss, "examples_per_sec": eps})
                 t_last, n_last = time.time(), 0
         return step_losses
 
     def save(self, tag: str) -> str:
-        return ckpt.save_checkpoint(self.cfg, self.nets, tag, self.optimizer,
-                                    self.scheduler, self.step)
+        """Rank 0 writes the checkpoint; every rank waits for it and gets
+        its path."""
+        path = ckpt.checkpoint_dir(self.cfg, tag)
+        if self.is_lead_host:
+            ckpt.save_checkpoint(self.cfg, self.nets, tag, self.optimizer,
+                                 self.scheduler, self.step)
+        barrier(self.group, self.device)
+        return path
 
     def train(self) -> None:
         for self.epoch in range(self.cfg.num_epochs):
@@ -228,8 +304,9 @@ class Trainer:
             return None
         metrics = evaluate_disparities(disps, gts)
         self.loggers["val"].log_scalars(self.step, metrics)
-        print("val | " + " | ".join(
-            f"{k} {v:.4f}" for k, v in metrics.items()), flush=True)
+        if self.is_lead_host:
+            print("val | " + " | ".join(
+                f"{k} {v:.4f}" for k, v in metrics.items()), flush=True)
         if metrics["abs_rel"] < self.best_absrel:
             self.best_absrel = metrics["abs_rel"]
             self.save("best")

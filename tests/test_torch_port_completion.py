@@ -24,6 +24,7 @@ forward), computed once per module. The JAX sides run the JAX package's
 generic path (its TPU layout flags off, test_torch_port_models.GENERIC).
 """
 
+import concurrent.futures
 import os
 
 import numpy as np
@@ -150,9 +151,10 @@ def test_kitti_completion_samples_match_jax(completion_tree, is_train):
 
 # ---- the model: R50 depth branch, R18 pose encoders ----
 
-def test_pose_depth_forward_matches_jax_f64():
-    """FusionNets(num_layers=50, pose_depth=18): disparities and poses of
-    the eval-mode forward to 1e-9, and the weights carried both ways."""
+def jax_pose_depth_forward():
+    """The JAX eval-mode forward of FusionNets(num_layers=50,
+    pose_depth=18) on one row: (its disparities and poses, its variables,
+    the row)."""
     kw = dict(KW, num_layers=50, batch_size=1)
     batch = {k: v[:1] for k, v in make_inputs().items()}
     with jax.enable_x64():
@@ -169,7 +171,25 @@ def test_pose_depth_forward_matches_jax_f64():
 
         want = jax.tree.map(np.asarray, jit(forward)(
             v, {k: jnp.asarray(x) for k, x in batch.items()}))
-    variables = {k: v[k] for k in NETS if k in v}
+    return want, {k: v[k] for k in NETS if k in v}, batch
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_sides():
+    """The module's two JAX sides, the R50/R18 forward and the loss
+    fixture's step, under way in two threads from the module's first test
+    on (XLA's compile releases the GIL), while the tests that read neither
+    run: {"pose_depth": future, "loss": future}."""
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        yield {"pose_depth": pool.submit(jax_pose_depth_forward),
+               "loss": pool.submit(jax_loss_side)}
+
+
+def test_pose_depth_forward_matches_jax_f64(jax_sides):
+    """FusionNets(num_layers=50, pose_depth=18): disparities and poses of
+    the eval-mode forward to 1e-9, and the weights carried both ways."""
+    kw = dict(KW, num_layers=50, batch_size=1)
+    want, variables, batch = jax_sides["pose_depth"].result()
     ours = FusionNets(Config(**kw), device=CPU, pose_depth=18)
     assert ours.pose_encoder.depth == ours.beam_encoder_pose.depth == 18
     assert ours.encoder.depth == ours.beam_encoder.depth == 50
@@ -194,7 +214,11 @@ def test_pose_depth_forward_matches_jax_f64():
 # ---- the loss and its gradients ----
 
 @pytest.fixture(scope="module")
-def jax_loss():
+def jax_loss(jax_sides):
+    return jax_sides["loss"].result()
+
+
+def jax_loss_side():
     """make_completion_loss_fn's loss, its terms and its gradients with
     each completion term, and the automask noise it drew. One jitted
     function: the two loss functions share one traced forward (the

@@ -21,6 +21,8 @@ Cheaper: one Completor.run_step on the CPU with each accepted variant,
 and the refused use_stereo raising with its reason.
 """
 
+import concurrent.futures
+
 import numpy as np
 import optax
 import pytest
@@ -65,7 +67,9 @@ STEPS_PER_EPOCH = 10
 CPU = torch.device("cpu")
 
 
-def test_completion_variant_step_matches_jax_f64():
+def jax_variant_step():
+    """The JAX completion step (loss, its terms, gradients, BN statistics
+    and the Adam update) of the module's variant combination, float64."""
     batch = make_inputs()
     with jax.enable_x64():
         cfg = JaxConfig(**KW, pallas_warp=False, **GENERIC)
@@ -91,34 +95,16 @@ def test_completion_variant_step_matches_jax_f64():
                            jax.random.PRNGKey(42))
         loss, losses, grads, new_stats, new_params = jax.tree.map(
             np.asarray, out)
+    return v, batch, loss, losses, grads, new_stats, new_params
 
-    port_cfg = Config(**KW)
-    ours = FusionNets(port_cfg, device=CPU, pose_depth=18)
-    assert ours.pose_encoder is None and ours.pose.squeeze.in_channels == \
-        512
-    ours.load_state_dict(from_jax_variables({k: v[k] for k in NETS
-                                             if k in v}))
-    opt, sched = make_completion_optimizer(port_cfg, ours, STEPS_PER_EPOCH)
-    got = train_step(port_cfg, ours, opt, sched,
-                     device_batch(batch, CPU, TRAIN_KEYS, torch.float64),
-                     loss_of=completion_loss)
-    assert abs(float(got["loss"]) - float(loss)) < 1e-7, (
-        float(got["loss"]), float(loss))
-    assert set(got) == set(losses)
-    assert abs(float(got["loss/si_loss0"]) - float(losses["loss/si_loss0"])
-               ) < 1e-7
-    g = {n: p.grad for n, p in ours.named_parameters()}
-    assert all(v is not None for v in g.values())
-    assert_trees_close({k: v["params"]
-                        for k, v in to_jax_variables(g).items()},
-                       grads, rtol=1e-5, atol=1e-9)
-    after = to_jax_variables(ours.state_dict())
-    assert_trees_close({k: v["params"] for k, v in after.items()},
-                       new_params, rtol=0, atol=1e-6)
-    assert_trees_close({k: v["batch_stats"] for k, v in after.items()
-                        if "batch_stats" in v},
-                       {k: s for k, s in new_stats.items() if s},
-                       rtol=0, atol=1e-9)
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_step():
+    """`jax_variant_step` under way in a thread from the module's first
+    test on (XLA's compile releases the GIL): the Completor steps run
+    meanwhile, and the test that reads it comes last."""
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        yield pool.submit(jax_variant_step)
 
 
 @pytest.mark.parametrize("flag", [
@@ -148,3 +134,34 @@ def test_completor_refuses_stereo_with_its_reason(tmp_path):
                  log_dir=str(tmp_path), use_stereo=True)
     with pytest.raises(NotImplementedError, match="integer offset"):
         Completor(cfg, device="cpu")
+
+
+def test_completion_variant_step_matches_jax_f64(jax_step):
+    v, batch, loss, losses, grads, new_stats, new_params = jax_step.result()
+    port_cfg = Config(**KW)
+    ours = FusionNets(port_cfg, device=CPU, pose_depth=18)
+    assert ours.pose_encoder is None and ours.pose.squeeze.in_channels == \
+        512
+    ours.load_state_dict(from_jax_variables({k: v[k] for k in NETS
+                                             if k in v}))
+    opt, sched = make_completion_optimizer(port_cfg, ours, STEPS_PER_EPOCH)
+    got = train_step(port_cfg, ours, opt, sched,
+                     device_batch(batch, CPU, TRAIN_KEYS, torch.float64),
+                     loss_of=completion_loss)
+    assert abs(float(got["loss"]) - float(loss)) < 1e-7, (
+        float(got["loss"]), float(loss))
+    assert set(got) == set(losses)
+    assert abs(float(got["loss/si_loss0"]) - float(losses["loss/si_loss0"])
+               ) < 1e-7
+    g = {n: p.grad for n, p in ours.named_parameters()}
+    assert all(v is not None for v in g.values())
+    assert_trees_close({k: v["params"]
+                        for k, v in to_jax_variables(g).items()},
+                       grads, rtol=1e-5, atol=1e-9)
+    after = to_jax_variables(ours.state_dict())
+    assert_trees_close({k: v["params"] for k, v in after.items()},
+                       new_params, rtol=0, atol=1e-6)
+    assert_trees_close({k: v["batch_stats"] for k, v in after.items()
+                        if "batch_stats" in v},
+                       {k: s for k, s in new_stats.items() if s},
+                       rtol=0, atol=1e-9)

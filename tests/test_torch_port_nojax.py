@@ -4,8 +4,9 @@ kernels, the refiner and its drivers, completion and the bench), its
 CLIs (the trainer, inference, evaluation, inf_gdc, refiner, completor,
 evaluate_completion, gen2cha_completion, export_detection, bench and the
 host data-prep CLIs sparsify, gen2channel, gen2channel_detec and
-export_gt_depth), the pose nets, ops/sampling.py and ops/losses.py, and
-chip_smoke.py loads no module of
+export_gt_depth), the pose nets, ops/sampling.py and ops/losses.py, the
+data-parallel modules (fusiondepth_torch.parallel.* and the multichip dry
+run), and chip_smoke.py loads no module of
 jax, jaxlib, flax or the JAX package (fusiondepth_tpu). Checked in a
 fresh interpreter, since this test process has imported JAX already
 (tests/conftest.py)."""
@@ -48,6 +49,11 @@ import fusiondepth_torch.export_gt_depth
 import fusiondepth_torch.models.pose
 import fusiondepth_torch.ops.sampling
 import fusiondepth_torch.ops.losses
+import fusiondepth_torch.parallel
+import fusiondepth_torch.parallel.collectives
+import fusiondepth_torch.parallel.mesh
+import fusiondepth_torch.parallel.multihost
+import fusiondepth_torch.multichip
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax",

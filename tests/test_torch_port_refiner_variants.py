@@ -22,6 +22,8 @@ which the JAX refiner cannot trace, and the sparse-3D refiners) raising
 with their reason.
 """
 
+import concurrent.futures
+
 import numpy as np
 import pytest
 import torch
@@ -58,13 +60,10 @@ VARIANTS = dict(pose_model_type="posecnn", use_stereo=True,
 CPU = torch.device("cpu")
 
 
-def test_refiner_variant_step_matches_jax_f64():
-    """The widest stage-1 variant combination the JAX refiner traces,
-    with train_entire_net: posecnn + use_stereo (frame "s", warped by
-    stereo_T) + predictive_mask (no automask, so no noise is drawn): the
-    loss, its terms and every gradient leaf, PoseCNN's included. The mask
-    decoder, the beam-pose encoder and the depth decoder's heads at scales
-    1-3 are unread: 0 in JAX, None in the port."""
+def jax_variant_step():
+    """The JAX refiner's entire_loss of the module's variant combination
+    under jax.value_and_grad, float64: (its inputs, loss, terms and
+    gradients)."""
     kw = {**KW, **VARIANTS}
     batch = stereo_inputs()
     batch["inf_gdc"] = np.random.default_rng(2).uniform(0.5, 1.5,
@@ -98,22 +97,16 @@ def test_refiner_variant_step_matches_jax_f64():
                 trainable, {k: jnp.asarray(x) for k, x in batch.items()},
                 jax.random.PRNGKey(42))
         (loss, losses), grads = jax.tree.map(np.asarray, out)
+    return kw, batch, frozen, refine_params, loss, losses, grads
 
-    ours = RefinerNets(Config(**kw), device=CPU)
-    load_jax(ours, {"frozen": {k: frozen[k] for k in NETS if k in frozen},
-                    "refine_params": refine_params})
-    got, got_losses = refine_loss(
-        ours.cfg, ours, device_batch(batch, CPU, REFINE_KEYS, torch.float64))
-    assert abs(got.item() - float(loss)) < 1e-7, (got.item(), float(loss))
-    assert set(got_losses) == set(losses)
-    got.backward()
-    unread = {n for n, p in ours.stage1.named_parameters() if p.grad is None}
-    assert {n.split(".")[0] for n in unread} == {
-        "predictive_mask", "beam_encoder_pose", "depth"}
-    assert all(n.startswith("depth.dispconv_") for n in unread
-               if n.startswith("depth."))
-    assert ours.stage1.pose.pose_conv.weight.grad.abs().max() > 0
-    assert_trees_close(entire_grads(ours), grads, rtol=1e-5, atol=1e-9)
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_step():
+    """`jax_variant_step` under way in a thread from the module's first
+    test on (XLA's compile releases the GIL): the Refiner steps run
+    meanwhile, and the test that reads it comes last."""
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        yield pool.submit(jax_variant_step)
 
 
 @pytest.mark.parametrize("flag", [
@@ -169,3 +162,28 @@ def test_refiner_refused_options_raise_with_their_reason(flag, reason,
                  weights_init="scratch", log_dir=str(tmp_path), **flag)
     with pytest.raises(NotImplementedError, match=reason):
         Refiner(cfg, device="cpu")
+
+
+def test_refiner_variant_step_matches_jax_f64(jax_step):
+    """The widest stage-1 variant combination the JAX refiner traces,
+    with train_entire_net: posecnn + use_stereo (frame "s", warped by
+    stereo_T) + predictive_mask (no automask, so no noise is drawn): the
+    loss, its terms and every gradient leaf, PoseCNN's included. The mask
+    decoder, the beam-pose encoder and the depth decoder's heads at scales
+    1-3 are unread: 0 in JAX, None in the port."""
+    kw, batch, frozen, refine_params, loss, losses, grads = jax_step.result()
+    ours = RefinerNets(Config(**kw), device=CPU)
+    load_jax(ours, {"frozen": {k: frozen[k] for k in NETS if k in frozen},
+                    "refine_params": refine_params})
+    got, got_losses = refine_loss(
+        ours.cfg, ours, device_batch(batch, CPU, REFINE_KEYS, torch.float64))
+    assert abs(got.item() - float(loss)) < 1e-7, (got.item(), float(loss))
+    assert set(got_losses) == set(losses)
+    got.backward()
+    unread = {n for n, p in ours.stage1.named_parameters() if p.grad is None}
+    assert {n.split(".")[0] for n in unread} == {
+        "predictive_mask", "beam_encoder_pose", "depth"}
+    assert all(n.startswith("depth.dispconv_") for n in unread
+               if n.startswith("depth."))
+    assert ours.stage1.pose.pose_conv.weight.grad.abs().max() > 0
+    assert_trees_close(entire_grads(ours), grads, rtol=1e-5, atol=1e-9)

@@ -29,6 +29,7 @@ test_torch_port_models.GENERIC).
 """
 
 import copy
+import functools
 import os
 
 import numpy as np
@@ -77,9 +78,10 @@ POSE_KEYS = [(k, 0, f) for f in SRC
              for k in ("axisangle", "translation", "cam_T_cam")]
 
 
-def make_inputs():
-    """The batch of tests/test_train_step_torch_parity.py."""
-    rng = np.random.default_rng(7)
+def make_inputs(seed=7):
+    """The batch of tests/test_train_step_torch_parity.py (another one of
+    the same kind from another seed)."""
+    rng = np.random.default_rng(seed)
     F_ = 3
     color = rng.uniform(0, 1, (B, F_, H, W, 3))
     color_aug = np.clip(color + rng.normal(0, 0.02, color.shape), 0, 1)
@@ -98,8 +100,11 @@ def make_inputs():
             "four_beam": four_beam, "K": K, "inv_K": np.linalg.inv(K)}
 
 
-@pytest.fixture(scope="module")
-def jax_side():
+@functools.cache
+def jax_train_inputs():
+    """The inputs of jax_train_side's step, made without compiling it: the
+    config, nets, float64 variables, batch, key and the automask noise of
+    photometric.py's scale loop drawn from the key."""
     batch = make_inputs()
     with jax.enable_x64():
         cfg = JaxConfig(**KW, pallas_warp=False, **GENERIC)
@@ -107,8 +112,26 @@ def jax_side():
         v = random_variables(lambda: nets.init(jax.random.PRNGKey(0),
                                                batch_size=B),
                              np.random.default_rng(0), np.float64)
-        params, stats = split_variables(v)
         key = jax.random.PRNGKey(42)
+        noise, r = [], key
+        for _ in cfg.scales:
+            r, sub = jax.random.split(r)
+            noise.append(torch.from_numpy(np.asarray(jax.random.normal(
+                sub, (len(SRC), B, H, W))) * 1e-5))
+    return dict(cfg=cfg, nets=nets, v=v, batch=batch, key=key, noise=noise,
+                variables={k: v[k] for k in NETS if k in v})
+
+
+@functools.cache
+def jax_train_side():
+    """The JAX side of this module's checks, computed once per process:
+    tests/test_torch_port_parallel.py holds its data-parallel step against
+    the same step."""
+    inputs = jax_train_inputs()
+    cfg, nets, v, batch, key = (inputs[k] for k in ("cfg", "nets", "v",
+                                                     "batch", "key"))
+    with jax.enable_x64():
+        params, stats = split_variables(v)
         loss_f = make_loss_fn(cfg, nets)
         tx = jax_make_optimizer(cfg, STEPS_PER_EPOCH)
 
@@ -139,20 +162,22 @@ def jax_side():
             return fwd, loss, grads, new_stats, optax.apply_updates(
                 params, updates)
 
-        out = jit(run)(params, stats,
-                           {k: jnp.asarray(x) for k, x in batch.items()},
-                           key)
+        run = jit(run)
+        out = run(params, stats,
+                  {k: jnp.asarray(x) for k, x in batch.items()}, key)
         fwd, loss, grads, new_stats, new_params = jax.tree.map(np.asarray,
                                                                out)
-        # the automask tie-break noise of photometric.py's scale loop
-        noise, r = [], key
-        for _ in cfg.scales:
-            r, sub = jax.random.split(r)
-            noise.append(torch.from_numpy(np.asarray(jax.random.normal(
-                sub, (len(SRC), B, H, W))) * 1e-5))
-    return dict(variables={k: v[k] for k in NETS if k in v}, batch=batch,
-                fwd=fwd, loss=float(loss), grads=grads, new_stats=new_stats,
-                new_params=new_params, noise=noise)
+    # the compiled step (under jax.enable_x64) and its parts, for a step of
+    # the same shapes on other inputs
+    return dict(variables=inputs["variables"], batch=batch, fwd=fwd,
+                loss=float(loss), grads=grads, new_stats=new_stats,
+                new_params=new_params, noise=inputs["noise"], run=run,
+                cfg=cfg, tx=tx)
+
+
+@pytest.fixture(scope="module")
+def jax_side():
+    return jax_train_side()
 
 
 def port_nets(jax_side):
@@ -286,16 +311,25 @@ def test_trainer_steps_checkpoint_and_infer_round_trip(tmp_path):
     assert torch.equal(infer.infer(batch), want)
 
 
-# the ids the two cases had before bf16 ("flag0") was ported
-@pytest.mark.parametrize("flag", [dict(num_processes=2),
-                                  dict(use_mesh=True)],
-                         ids=["flag1", "flag2"])
-def test_unported_options_raise(flag, tmp_path):
+@pytest.mark.parametrize("case", ["world_of_one_trains",
+                                  "mesh_of_two_in_one_process_raises"])
+def test_use_mesh_in_one_process(case, tmp_path):
+    """use_mesh=True in a world of one trains a step with no collective
+    (the mesh's group is None); mesh_shape=(2,) in one process raises the
+    ValueError that says to launch two processes with torchrun."""
+    mesh_shape = (1,) if case == "world_of_one_trains" else (2,)
     cfg = Config(num_layers=18, height=64, width=96, batch_size=2,
-                 weights_init="scratch", log_dir=str(tmp_path), **flag)
-    with pytest.raises(NotImplementedError):
-        Trainer(cfg, train_dataset=SyntheticDataset(cfg, length=2),
-                device="cpu")
+                 weights_init="scratch", log_dir=str(tmp_path),
+                 num_workers=1, use_mesh=True, mesh_shape=mesh_shape)
+    data = SyntheticDataset(cfg, length=2)
+    if case != "world_of_one_trains":
+        with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
+            Trainer(cfg, train_dataset=data, device="cpu")
+        return
+    trainer = Trainer(cfg, train_dataset=data, device="cpu")
+    assert trainer.mesh.shape == {"data": 1} and trainer.group is None
+    losses = trainer.run_epoch()
+    assert len(losses) == 1 and np.isfinite(float(losses[0]))
 
 
 @pytest.mark.parametrize("driver", ["Refiner", "Completor"])

@@ -33,6 +33,8 @@ per_semantic and benchmark branches of evaluate; the four host CLIs
 against the root scripts.
 """
 
+import concurrent.futures
+import functools
 import os
 import runpy
 import shutil
@@ -167,11 +169,10 @@ def jax_noise(cfg, key):
     return noise
 
 
-@pytest.fixture(scope="module", params=list(CONFIGS))
-def jax_step(request):
+def jax_variant_step(name):
     """make_loss_fn's loss, gradients, BN statistics and training-mode
     forward, and make_train_step's Adam update, for one configuration."""
-    kw = {**KW, **CONFIGS[request.param]}
+    kw = {**KW, **CONFIGS[name]}
     batch = stereo_inputs()
     with jax.enable_x64():
         cfg = JaxConfig(**kw, pallas_warp=False, **GENERIC)
@@ -206,18 +207,31 @@ def jax_step(request):
             return fwd, loss, grads, new_stats, optax.apply_updates(
                 params, updates)
 
-        with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(jax_planes, "box3", _box3_f64)
-            out = jit(run)(params, stats,
-                           {k: jnp.asarray(x) for k, x in batch.items()},
-                           key)
+        out = jit(run)(params, stats,
+                       {k: jnp.asarray(x) for k, x in batch.items()}, key)
         fwd, loss, grads, new_stats, new_params = jax.tree.map(np.asarray,
                                                                out)
         noise = None if cfg.disable_automasking else jax_noise(cfg, key)
-    return dict(name=request.param, kw=kw,
+    return dict(name=name, kw=kw,
                 variables={k: v[k] for k in NETS if k in v}, batch=batch,
                 fwd=fwd, loss=float(loss), grads=grads, new_stats=new_stats,
                 new_params=new_params, noise=noise)
+
+
+@functools.cache
+def jax_variant_steps():
+    """`jax_variant_step` of every configuration, traced, compiled and run
+    in a thread each at once (XLA's compile releases the GIL), with the
+    planes box3's products kept in float64 in both."""
+    with pytest.MonkeyPatch.context() as mp, \
+            concurrent.futures.ThreadPoolExecutor(len(CONFIGS)) as pool:
+        mp.setattr(jax_planes, "box3", _box3_f64)
+        return dict(zip(CONFIGS, pool.map(jax_variant_step, CONFIGS)))
+
+
+@pytest.fixture(scope="module", params=list(CONFIGS))
+def jax_step(request):
+    return jax_variant_steps()[request.param]
 
 
 def test_variant_step_matches_jax_f64(jax_step):
