@@ -67,6 +67,25 @@ order, it:
    step with the stage-1 variants of REFINE_VARIANT (posecnn + use_stereo
    + predictive_mask), its kernel calls held and every refine kernel
    launched;
+7b. the sparse-3D refiner (`refine3d_phase`: Refiner3D over the frozen
+   ResNet-18 stage 1 at 640x192, batch 4, each voxel net of the selectors
+   at the JAX defaults, 0.5 m voxels and 16384 a sample; the seeded stage
+   1's disparity head shifted so that its depths span ~2-31 m,
+   REFINE3D_DISP_SHIFT): holds the forward kernels on the calls of a
+   batch-4 step and times them; holds the voxel tables of one stage-1
+   depth built on the card against the CPU's (from the same float32
+   points and from the same float64 depth: every integer array equal, the
+   features within REFINE3D_FEAT_RTOL; the U-Net's pyramid too), and of
+   the same frame at REFINE3D_OVERFLOW_SHIFT, past the capacity; for each
+   net a whole batch-2 step through the kernels against all-plain and
+   float64 (`hold_step`: the loss and every voxel-net leaf, the BN
+   running statistics included), all on the kernel step's voxel tables
+   (`fixed_voxel_tables`), then Refiner3D.train() over 12 frames
+   (3 steps at batch 4) with the counts set to 0 before and read after
+   (every forward kernel launched, every voxel-net leaf moved, stage 1
+   unchanged), a step and `infer` (refined disparities in [1e-4, 1]);
+   times the U-Net's batch-4 step against all-plain, with its peak memory
+   and the frame's unique voxels against the capacity;
 8. completion (BASELINE config 5: ResNet-50 depth and beam encoders,
    ResNet-18 pose encoders, 352 x 1216, batch 4, fp32): holds every
    stage-1 kernel on the calls of a batch-4 completion step at the
@@ -156,7 +175,9 @@ order, it:
    (A and B: launches, times and bound; C: launches) and a "ddp" entry
    (each rank's launches in the two-rank world, and the NCCL world of
    one's; the bf16 entry points: the bf16 two-rank world's), then, last,
-   {"ok": true, "device": {...}}. After the build it prints what ptxas
+   {"ok": true, "device": {...}}; the three forward kernels also carry a
+   "refine3d" entry (each net's train() launches, and the batch-4 step's
+   calls timed). After the build it prints what ptxas
    reported for the conv kernels, the pool backward, the warp forward and
    backward, the reprojection-loss forward and backward and
    the KNN kernels (registers, spills; PTXAS_KERNELS).
@@ -197,6 +218,8 @@ from fusiondepth_torch.kernels import knn as knn_kernel
 from fusiondepth_torch.models.depth_decoder import ConvBlock
 from fusiondepth_torch.models.fusion import FusionNets, model_dtype
 from fusiondepth_torch.models.norm import BatchNorm
+from fusiondepth_torch.ops.depth import disp_to_depth
+from fusiondepth_torch.ops.geometry import backproject_depth
 from fusiondepth_torch.training import checkpoint as ckpt
 from fusiondepth_torch.training.completor import Completor, completion_loss
 from fusiondepth_torch.training.eval_driver import evaluate, \
@@ -205,6 +228,8 @@ from fusiondepth_torch.training.gdc_driver import gdc_one_frame, run_inf_gdc
 from fusiondepth_torch.training.infer_driver import Infer, device_batch
 from fusiondepth_torch.training.refiner import refine_loss
 from fusiondepth_torch.training.refiner_driver import Refiner
+from fusiondepth_torch.training import refiner3d
+from fusiondepth_torch.models import refine_net3d
 from fusiondepth_torch.parallel import maybe_initialize_distributed
 from fusiondepth_torch.training.train_state import loss_fn, make_optimizer, \
     train_step
@@ -344,6 +369,26 @@ KNN_DIST_RTOL = 1e-6
 # stage 2 (BASELINE config 4): refine steps at batch 4, GDC at KITTI's
 # native size with the default capacities
 REFINE_BATCH, REFINE_FRAMES, GDC_FRAMES = 4, 12, 3
+# the sparse-3D refiner (step 7b): each voxel net at the JAX defaults
+# (voxel 0.5 m, 16384 voxels a sample) over the frozen stage 1, whose
+# only kernels are the forward ones. The seeded stage 1 predicts depths
+# of 0.1-0.6 m (a handful of voxels); its disparity head's bias moved by
+# REFINE3D_DISP_SHIFT puts them at ~2-31 m (median ~8.7), ~10.7k unique
+# voxels a frame, below the capacity. (At -5, ~3.5-42 m, a frame has
+# ~25k voxels, and the overflow merges a third of its pixels into the
+# last slot: REFINE3D_OVERFLOW_SHIFT.)
+REFINE3D_NETS = ("refine_shallow", "refine_deep", "refineUnet")
+REFINE3D_VOXEL, REFINE3D_CAPACITY = 0.5, 16384
+REFINE3D_KERNELS = FORWARD_KERNELS
+REFINE3D_DISP_SHIFT = -4.5
+# the shift at which a frame overflows the capacity (`hold_voxel_tables`
+# builds that frame's tables on the card and on the CPU)
+REFINE3D_OVERFLOW_SHIFT = -5.0
+# the voxel features built on the card against the CPU's from the same
+# points: each voxel's sum runs over its points in the same order on both
+# (`refine_net3d.segment_sum`), so they may differ only by the float32
+# rounding of the back-projection, which the same points rule out
+REFINE3D_FEAT_RTOL = 1e-6
 NATIVE = (375, 1242)
 # GDC's capacities (cap_pl, cap_l): the defaults, which the JAX package sets
 # and a frame of the synthetic drive overflows (about 67.1k-67.7k
@@ -1634,6 +1679,296 @@ def refine_variant_step(dev, tmp):
     return err, launches
 
 
+def voxel_tables(depth, inv_K, unet_levels):
+    """Level 0's voxel list of one depth ((coords, feats, valid, p2v,
+    keys) of `refine_net3d.depth_to_voxels`), its neighbour table, and the
+    U-Net's pyramid over `unet_levels` levels."""
+    vox = refine_net3d.depth_to_voxels(depth, inv_K, REFINE3D_VOXEL,
+                                       REFINE3D_CAPACITY)
+    nb = refine_net3d.neighbor_table(vox[0], vox[4], vox[2],
+                                     refine_net3d._kernel_offsets(3))
+    tables, c2p = refine_net3d.build_voxel_pyramid(
+        vox[0], vox[4], vox[2], unet_levels, REFINE3D_CAPACITY)
+    return vox, nb, tables, c2p
+
+
+def stage1_depth0(r, batch):
+    """Sample 0's stage-1 depth (H, W) of a Refiner3D's frozen stage 1."""
+    with torch.no_grad():
+        out, _ = r.stage1.forward_depth(batch)
+    return disp_to_depth(out[("disp", 0)][0, ..., 0], r.cfg.min_depth,
+                         r.cfg.max_depth)[1]
+
+
+def hold_voxel_tables(r, batch, dev):
+    """The voxel tables of sample 0's stage-1 depth built on the card and
+    on the CPU, for two frames: the refine3d phase's (below capacity) and
+    the same sample with the disparity head's bias at
+    REFINE3D_OVERFLOW_SHIFT (more unique voxels than capacity: the
+    overflow merges into the last slot, and every slot is valid). For
+    each, from the same float32 points (`refine_net3d.voxelize`) and from
+    the same float64 depth (level 0, its neighbour table, the U-Net's
+    pyramid), each integer array equal, the features within
+    REFINE3D_FEAT_RTOL; and `refine_net3d.gather_rows`' backward against
+    index_add_ in float64 (1e-12 of the largest) on its neighbour table
+    and its point-to-voxel map. Returns the first frame's unique-voxel
+    count."""
+    depths = {"frame": stage1_depth0(r, batch)}
+    bias = r.stage1.depth.dispconv_0.conv.bias
+    kept = bias.detach().clone()
+    with torch.no_grad():
+        bias += REFINE3D_OVERFLOW_SHIFT - REFINE3D_DISP_SHIFT
+    try:
+        depths["overflow"] = stage1_depth0(r, batch)
+    finally:
+        with torch.no_grad():
+            bias.copy_(kept)
+    inv_K = batch["inv_K"][0]
+    cpu = torch.device("cpu")
+    g = torch.Generator(device=dev).manual_seed(7)
+    uniques = {}
+    for frame, depth in depths.items():
+        points = backproject_depth(depth[None], inv_K[None])[0].reshape(-1,
+                                                                        3)
+        vals = torch.stack([depth.reshape(-1),
+                            torch.ones_like(depth).reshape(-1)], 1)
+        pairs = [(refine_net3d.voxelize(points, vals, REFINE3D_VOXEL,
+                                        REFINE3D_CAPACITY),
+                  refine_net3d.voxelize(points.to(cpu), vals.to(cpu),
+                                        REFINE3D_VOXEL, REFINE3D_CAPACITY))]
+        # the Refiner3D U-Net's widths (16, 32, 64, 64): 3 levels
+        d64, k64 = depth.double(), inv_K.double()
+        card = voxel_tables(d64, k64, 3)
+        host = voxel_tables(d64.to(cpu), k64.to(cpu), 3)
+        pairs += [(card[0], host[0]), ([card[1]], [host[1]])]
+        pairs += [(list(a.values()), list(b.values()))
+                  for a, b in zip(card[2], host[2])]
+        pairs.append((card[3], host[3]))
+        arrays = feat_err = 0
+        for got, want in pairs:
+            for a, b in zip(got, want):
+                a = a.cpu()
+                if a.is_floating_point():
+                    e = ((a - b).abs() / b.abs().clamp_min(1e-30)).max(
+                    ).item()
+                    feat_err = max(feat_err, e)
+                    require(e <= REFINE3D_FEAT_RTOL, f"{frame}: voxel "
+                            f"features on the card off the CPU's by {e} "
+                            "relative")
+                else:
+                    require(a.dtype == b.dtype and torch.equal(a, b),
+                            f"{frame}: a voxel table ({tuple(a.shape)}, "
+                            f"{a.dtype}) differs between the card and the "
+                            "CPU")
+                arrays += 1
+        # gather_rows' backward (a segment sum in a fixed order) against
+        # index_add_ in float64 on the frame's neighbour table (each row
+        # repeated up to 27 times, the missing neighbours dropped) and its
+        # point-to-voxel map (a voxel's points, thousands near the camera;
+        # on the overflow frame the last slot's, a third of the frame's)
+        gather_err = 0.0
+        for idx in (card[1], card[0][3]):
+            x = torch.randn((REFINE3D_CAPACITY, 16), dtype=torch.float64,
+                            device=dev, generator=g, requires_grad=True)
+            cot = torch.randn(idx.shape + (16,), dtype=torch.float64,
+                              device=dev, generator=g)
+            refine_net3d.gather_rows(x, idx).backward(cot)
+            hit = idx >= 0
+            want = torch.zeros_like(x).index_add_(0, idx[hit].long(),
+                                                  cot[hit])
+            e = ((x.grad - want).abs().max() / want.abs().max()).item()
+            gather_err = max(gather_err, e)
+            require(e <= 1e-12, f"{frame}: gather_rows' backward off "
+                    f"index_add_ by {e}")
+        uniques[frame] = int(refine_net3d.depth_to_voxels(
+            d64, k64, REFINE3D_VOXEL, depth.numel())[2].sum())
+        valid = int(card[0][2].sum())
+        last_slot = int((card[0][3] == REFINE3D_CAPACITY - 1).sum())
+        emit(check="refine3d_voxel_tables_card_vs_cpu", frame=frame,
+             arrays=arrays, integer_equal=True, max_feat_rel_err=feat_err,
+             feat_tol=REFINE3D_FEAT_RTOL,
+             gather_rows_bwd_rel_err=gather_err, gather_rows_bwd_tol=1e-12,
+             unique_voxels=uniques[frame], capacity=REFINE3D_CAPACITY,
+             valid_slots=valid, points_in_last_slot=last_slot,
+             unet_valid_slots=[int(tb["valid"].sum()) for tb in card[2]])
+        if frame == "overflow":
+            require(uniques[frame] > REFINE3D_CAPACITY
+                    and valid == REFINE3D_CAPACITY,
+                    f"the overflow frame has {uniques[frame]} unique "
+                    f"voxels and {valid} valid slots of "
+                    f"{REFINE3D_CAPACITY}")
+    return uniques["frame"]
+
+
+@contextlib.contextmanager
+def fixed_voxel_tables(batch: int):
+    """Within the block every Refiner3D step voxelizes sample i with the
+    tables (coords, valid, point-to-voxel map, keys) that the block's
+    first step built for its sample i, each voxel's features the mean of
+    the step's own points ([depth, 1]) over that map, in the same order
+    as `refine_net3d.voxelize` sums them (so the first step's features
+    are its own bit for bit). The tables are discontinuous in the points
+    (a depth a float32 rounding apart moves a point into another voxel,
+    and one voxel more or less moves the step's gradient by up to ~90% at
+    640x192: ROADMAP section 3), so steps through the kernels, all-plain,
+    on nudged images and in float64 are held against each other on the
+    same tables; `hold_voxel_tables` holds the tables themselves."""
+    tables, calls = [], [0]
+    build = refiner3d.depth_to_voxels
+
+    def fixed(depth, inv_K, voxel_size, capacity):
+        i = calls[0] % batch
+        calls[0] += 1
+        if len(tables) < batch:
+            tables.append(build(depth, inv_K, voxel_size, capacity))
+        coords, _, valid, p2v, keys = tables[i]
+        vals = torch.stack([depth.reshape(-1),
+                            torch.ones_like(depth).reshape(-1)], 1)
+        sums = refine_net3d.segment_sum(vals, p2v, capacity)
+        cnts = refine_net3d.segment_sum(vals[:, 1:], p2v, capacity)
+        return coords, sums / torch.clamp(cnts, min=1.0), valid, p2v, keys
+
+    refiner3d.depth_to_voxels = fixed
+    try:
+        yield
+    finally:
+        refiner3d.depth_to_voxels = build
+
+
+def refine3d_grads(r, batch, noise=None):
+    """(loss, {param: grad}) of one Refiner3D step, no update: every
+    voxel-net leaf, the BN running statistics included."""
+    r.net.zero_grad(set_to_none=True)
+    loss = r.loss(batch)
+    loss.backward()
+    return loss.item(), {n: p.grad.detach().clone()
+                         for n, p in r.net.named_parameters()
+                         if p.grad is not None}
+
+
+def refine3d_setup(tmp, frames):
+    """The refine3d phase's config (BASELINE config 4's stage 1 at batch 4,
+    its seeded weights with the disparity head's bias moved by
+    REFINE3D_DISP_SHIFT, saved under `tmp` as refine_load_weights_folder)
+    and `frames` synthetic frames carrying a GDC target."""
+    cfg = Config(num_layers=18, height=HEIGHT, width=WIDTH,
+                 batch_size=REFINE_BATCH, weights_init="scratch",
+                 log_dir=tmp, num_workers=4, log_frequency=1, num_epochs=1,
+                 model_name="smoke_refine3d")
+    nets = seeded_weights(cfg)
+    with torch.no_grad():
+        nets.depth.dispconv_0.conv.bias += REFINE3D_DISP_SHIFT
+    cfg = cfg.replace(refine_load_weights_folder=ckpt.save_checkpoint(
+        cfg, nets, "stage1_refine3d"))
+    return cfg, RefineFrames(cfg, frames)
+
+
+def refine3d_refiner(cfg, flag, data, dev):
+    """The Refiner3D of the selector `flag` on `refine3d_setup`'s config,
+    at REFINE3D_VOXEL and REFINE3D_CAPACITY, training on `data`."""
+    return refiner3d.Refiner3D(
+        cfg.replace(**{flag: True}), train_dataset=data,
+        voxel_size=REFINE3D_VOXEL, capacity=REFINE3D_CAPACITY, device=dev)
+
+
+def refine3d_phase(dev, tmp):
+    """Step 7b, the sparse-3D refiner (BASELINE config 4's stage 1:
+    ResNet-18, 640x192, batch 4, frozen; the voxel nets at 0.5 m and 16384
+    voxels a sample): the forward kernels on the calls of a batch-4 step
+    (through the Shallow net's Refiner3D), then for each net the voxel
+    tables built on the card against the CPU's, a whole batch-2 step
+    through the kernels against all-plain and float64 (`hold_step`: the
+    loss and every voxel-net leaf, on the kernel step's voxel tables,
+    `fixed_voxel_tables`), and Refiner3D.train() over 12 frames
+    (3 steps at batch 4) with the counts set to 0 before and read after,
+    every forward kernel launched, stage 1 unchanged; the U-Net's step
+    timed against all-plain, with its peak memory."""
+    t0 = time.perf_counter()
+    cfg, data = refine3d_setup(tmp, REFINE_FRAMES)
+    err, launches, ktimes, unique = {}, {}, None, None
+    for flag in REFINE3D_NETS:
+        r = refine3d_refiner(cfg, flag, data, dev)
+        small = r.put_batch(collate([data[i] for i in range(CHECK_BATCH)]))
+        big = r.put_batch(collate([data[i] for i in range(REFINE_BATCH)]))
+        if ktimes is None:
+            calls = []
+            with all_plain(record=calls):
+                r.loss(big).backward()
+            r.net.zero_grad(set_to_none=True)
+            err = check_kernels(calls)
+            require(set(err) == set(REFINE3D_KERNELS),
+                    f"the refine3d step called {sorted(err)}")
+            emit_checks(err, calls, [], "refine3d_batch4")
+            ktimes = time_kernels(calls, "refine3d_batch4")
+            del calls
+            unique = hold_voxel_tables(r, big, dev)
+
+        def grads64():
+            r64 = copy.copy(r)
+            r64.cfg = r.cfg.replace(compute_dtype="float64")
+            r64.stage1 = float64_copy(r.stage1, r64.cfg)
+            r64.net = copy.deepcopy(r.net).double()
+            loss, grads = refine3d_grads(r64, {k: v.double() for k, v in
+                                               small.items()})
+            return loss, grads, {}
+
+        with fixed_voxel_tables(CHECK_BATCH):
+            hold_step(f"refine3d_{flag}_step_vs_all_plain",
+                      lambda b, n: refine3d_grads(r, b), small, None,
+                      grads64, REFINE3D_KERNELS)
+        r.net.zero_grad(set_to_none=True)
+
+        s1 = {n: v.clone() for n, v in r.stage1.state_dict().items()}
+        before = {n: p.detach().clone() for n, p in r.net.named_parameters()}
+        torch.cuda.synchronize()
+        reset_launches()
+        t = time.perf_counter()
+        r.train()
+        torch.cuda.synchronize()
+        launches[flag] = dict(LAUNCHES)
+        moved = sum(not torch.equal(p, before[n])
+                    for n, p in r.net.named_parameters())
+        emit(phase="refiner3d_train", net=flag, steps=r.step,
+             batch=REFINE_BATCH, seconds=time.perf_counter() - t,
+             launches=launches[flag], leaves_moved=moved,
+             leaves=len(before))
+        require(r.step == REFINE_FRAMES // REFINE_BATCH,
+                f"{flag}: {r.step} Refiner3D steps")
+        require(moved == len(before), f"{flag}: {len(before) - moved} "
+                "voxel-net leaves did not move")
+        require(all(torch.equal(v, s1[n])
+                    for n, v in r.stage1.state_dict().items()),
+                f"{flag}: the frozen stage 1 moved")
+        for name in REFINE3D_KERNELS:
+            require(launches[flag][name] > 0, f"refine3d {flag}: kernel "
+                    f"{name} was never launched")
+        loss = float(r.run_step(big, on_device=True))
+        require(np.isfinite(loss), f"{flag}: loss {loss}")
+        disp = r.infer(big)
+        require(tuple(disp.shape) == (REFINE_BATCH, HEIGHT, WIDTH) and bool(
+            ((disp >= 1e-4) & (disp <= 1.0)).all()),
+            f"{flag}: refined disparity {tuple(disp.shape)} outside "
+            "[1e-4, 1]")
+        if flag == "refineUnet":
+            torch.cuda.reset_peak_memory_stats()
+
+            def plain_step():
+                with all_plain():
+                    r.run_step(big, on_device=True)
+
+            step_ms, plain_ms = paired_ms(
+                lambda: r.run_step(big, on_device=True), plain_step, iters=3,
+                warmup=1)
+            emit(timing="refine3d_unet_step", batch=REFINE_BATCH, ms=step_ms,
+                 plain_ms=plain_ms,
+                 samples_per_s=REFINE_BATCH / step_ms * 1e3,
+                 peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+                 unique_voxels_frame0=unique, capacity=REFINE3D_CAPACITY,
+                 card=card_line())
+    emit(phase="refine3d", seconds=time.perf_counter() - t0)
+    return err, launches, ktimes
+
+
 class CompletionFrames(SmokeFrames):
     """Synthetic completion frames at 352 x 1216, each with a dense
     ground-truth depth map in metres (for validate)."""
@@ -2551,6 +2886,9 @@ def main() -> int:
         err, launches["refine_variant"] = refine_variant_step(dev, tmp)
         errs.append(err)
         lap("refine_variant")
+        err, launches3d, times3d = refine3d_phase(dev, tmp)
+        errs.append(err)
+        lap("refine3d")
         err, launches["completion"], ctimes, launches["completion_remat"] = \
             completion_phase(dev, tmp)
         errs.append(err)
@@ -2613,6 +2951,14 @@ def main() -> int:
             c = etimes[name]
             kernels[-1]["refine_entire"] = {
                 "launches": launches["refine_entire"][name],
+                "calls_per_step": c["calls"], "ms": c["ms"],
+                "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+                "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+                "library_of_ms": c["library_of_ms"], "tflops": c["tflops"]}
+        if name in REFINE3D_KERNELS:
+            c = times3d[name]
+            kernels[-1]["refine3d"] = {
+                "launches": {f: launches3d[f][name] for f in REFINE3D_NETS},
                 "calls_per_step": c["calls"], "ms": c["ms"],
                 "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                 "bound_by": c["bound_by"], "library_ms": c["library_ms"],

@@ -4,15 +4,16 @@ state dicts, both ways, for the depth and pose networks.
 A JAX FusionNets tree is `{net: {"params": ..., "batch_stats": ...}}`,
 nested dicts of arrays; this module needs only numpy. The nets covered are
 `encoder`, `beam_encoder`, `depth`, `predictive_mask`, `pose_encoder`,
-`beam_encoder_pose` and `pose` (the PoseDecoder, or PoseCNN), and the
-refiner's
-`refine2d` decoder (its JAX variables `{"params": ...}` under that key);
-other subtrees are skipped. The trees the JAX package builds with its
-default TPU layout flags have the generic layout's names and shapes, so
-they carry over unchanged.
+`beam_encoder_pose` and `pose` (the PoseDecoder, or PoseCNN), the
+refiner's `refine2d` decoder (its JAX variables `{"params": ...}` under
+that key) and the sparse-3D refiner's voxel net under `refine3d` (the
+JAX Refiner3D's `net_variables`); other subtrees are skipped. The trees
+the JAX package builds with its default TPU layout flags have the
+generic layout's names and shapes, so they carry over unchanged.
 
 Mapping, JAX -> port:
   kernel (H, W, I, O)        -> weight (O, I, H, W)
+  voxel kernel (27 I, O)     -> weight (27 I, O), unchanged
   BatchNorm scale / bias     -> weight / bias
   batch_stats mean / var     -> running_mean / running_var
   encoder layer{s}_{b}       -> layer{s}.{b}
@@ -20,7 +21,9 @@ Mapping, JAX -> port:
 Decoder module names (`upconv_4_0/conv`, `dispconv_0/conv`, and with
 `deep` `upconv_4_0/a/conv`, `upconv_4_0/b/conv`), pose decoder ones
 (`squeeze`, `pose_0`..`pose_2`) and PoseCNN ones (`conv_0`..`conv_6`,
-`pose_conv`: HWIO kernels and biases) are the same.
+`pose_conv`: HWIO kernels and biases) and the voxel nets' ones
+(`conv{i}`, `bn{i}`, `head`, `enc{l}_conv`, `enc{l}_bn`, `dec{l}_conv`,
+`dec{l}_bn`) are the same.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import numpy as np
 import torch
 
 NETS = ("encoder", "beam_encoder", "depth", "predictive_mask",
-        "pose_encoder", "beam_encoder_pose", "pose", "refine2d")
+        "pose_encoder", "beam_encoder_pose", "pose", "refine2d", "refine3d")
 
 _BLOCK = re.compile(r"^layer(\d+)_(\d+)$")
 _MODULE_TO_TORCH = {"downsample_conv": "downsample.0",
@@ -70,7 +73,7 @@ def from_jax_variables(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         for path, leaf in _walk(variables[net]):
             collection, modules, name = path[0], path[1:-1], path[-1]
             arr = np.asarray(leaf)
-            if name == "kernel":
+            if name == "kernel" and arr.ndim == 4:
                 arr = np.transpose(arr, (3, 2, 0, 1))
             key = ".".join((net, *map(_module_to_torch, modules),
                             _LEAF_TO_TORCH[(collection, name)]))
@@ -104,6 +107,8 @@ def to_jax_variables(state_dict: Dict[str, torch.Tensor]
         elif leaf == "weight" and arr.ndim == 4:
             collection, name = "params", "kernel"
             arr = np.ascontiguousarray(np.transpose(arr, (2, 3, 1, 0)))
+        elif leaf == "weight" and arr.ndim == 2:
+            collection, name = "params", "kernel"
         elif leaf == "weight":
             collection, name = "params", "scale"
         else:

@@ -1,10 +1,13 @@
 """CLI: stage-2 refine training on the port: distils the offline GDC
 caches (`python -m fusiondepth_torch.inf_gdc`) into the refine2d decoder
-on top of a frozen stage-1 checkpoint; same flags as the JAX package's
-refiner.py. Runs on cuda:0.
+on top of a frozen stage-1 checkpoint, or with --refine_shallow,
+--refineUnet or --refine_deep into a sparse voxel net
+(`training/refiner3d.py`); same flags as the JAX package's refiner.py.
+Runs on cuda:0.
 
     python -m fusiondepth_torch.refiner --data_path kitti_data \
-        --batch_size 4 --refine_load_weights_folder <stage-1 weights>
+        --batch_size 4 --refine_load_weights_folder <stage-1 weights> \
+        [--refineUnet]
 """
 
 import os
@@ -32,7 +35,12 @@ def main(argv=None):
         cfg.data_path,
         readlines(os.path.join(SPLIT_DIR, "eigen", "test_files.txt")),
         cfg.height, cfg.width, [0], is_train=False, img_ext=ext, cfg=cfg)
-    Refiner(cfg, train, val).train()
+    if cfg.refine_shallow or cfg.refineUnet or cfg.refine_deep:
+        from fusiondepth_torch.training.refiner3d import Refiner3D
+
+        Refiner3D(cfg, train, val).train()
+    else:
+        Refiner(cfg, train, val).train()
 
 
 if __name__ == "__main__":

@@ -16,9 +16,10 @@ JAX bundle's `stage1_variables`) and the optimizer state, laid out as
 `.npz` of the JAX variables (keys "refine2d/params/...", "encoder/...";
 `scripts/convert_checkpoint.py` writes one from a JAX refine checkpoint).
 
-Stage-1 variants: see `train_state.py::check_stage1_variants`. Not
-ported, and refused with NotImplementedError: the sparse-3D family
-(refine_shallow, refineUnet, refine_deep).
+Stage-1 variants: see `train_state.py::check_stage1_variants`. The
+sparse-3D selectors (refine_shallow, refineUnet, refine_deep) are read by
+the refiner CLI, which hands them to `training/refiner3d.py::Refiner3D`;
+this driver ignores them, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -50,12 +51,6 @@ INFER_KEYS = ("color_aug", "two_channel", "four_beam", "K")
 class Refiner:
     def __init__(self, cfg: Config, train_dataset=None, val_dataset=None,
                  device=None):
-        unported = [f for f in ("refine_shallow", "refineUnet",
-                                "refine_deep") if getattr(cfg, f)]
-        if unported:
-            raise NotImplementedError(
-                f"{', '.join(unported)}: not ported to fusiondepth_torch "
-                "yet; use the JAX package's refiner")
         # the reference forces these on (refiner.py:29-30)
         cfg = cfg.replace(clone_gdc=True, refine_2d=True)
         refuse_bf16(cfg, "the refiner")

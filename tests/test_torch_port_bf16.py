@@ -84,7 +84,8 @@ from fusiondepth_torch.training.train_state import loss_fn, \
 from fusiondepth_torch.training.trainer import TRAIN_KEYS
 
 from test_torch_port_models import few_torch_threads  # noqa: F401
-from test_torch_port_models import GENERIC, jit, random_variables
+from test_torch_port_models import GENERIC, jax_sides_in_threads, jit, \
+    random_variables
 from test_torch_port_train import _leaves, make_inputs
 
 B, H, W = 2, 64, 96
@@ -397,6 +398,64 @@ def test_loss_kinks_take_the_jax_derivatives():
                                atol=1e-12)
 
 
+def test_bf16_trainer_checkpoint_converts_to_the_jax_bf16_config(tmp_path):
+    """A bf16 Trainer's saved weights are float32 (the parameters and BN
+    statistics never leave float32), and scripts/convert_checkpoint.py
+    to-jax gives the JAX package's load_checkpoint under its bf16 Config
+    the same parameters and statistics, bit for bit."""
+    import importlib.util
+    import os
+
+    from fusiondepth_tpu.training.checkpoint import \
+        load_checkpoint as jax_load_checkpoint
+    from fusiondepth_tpu.training.train_state import TrainState
+    from fusiondepth_torch.data.synthetic import SyntheticDataset
+    from fusiondepth_torch.training.trainer import Trainer
+
+    cfg = Config(**KW, compute_dtype="bfloat16", beam_encoder=False,
+                 log_dir=str(tmp_path), num_workers=1, log_frequency=1)
+    trainer = Trainer(cfg, train_dataset=SyntheticDataset(cfg, length=2),
+                      device=CPU)
+    assert len(trainer.run_epoch()) == 1
+    src = trainer.save("bf16")
+    saved = torch.load(os.path.join(src, "model.pt"), map_location="cpu")
+    floats = [v for v in saved.values() if v.is_floating_point()]
+    assert floats and all(v.dtype == torch.float32 for v in floats)
+
+    spec = importlib.util.spec_from_file_location(
+        "convert_checkpoint", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "scripts", "convert_checkpoint.py"))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    dst = str(tmp_path / "jax" / "weights_bf16")
+    assert script.main(["to-jax", src, dst]) == 0
+
+    jcfg = JaxConfig(**KW, compute_dtype="bfloat16", beam_encoder=False)
+    shapes = jax.eval_shape(lambda: JaxFusionNets(jcfg).init(
+        jax.random.PRNGKey(0), batch_size=B))
+    zeros = jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), shapes)
+    params, stats = split_variables(zeros)
+    tx = jax_make_optimizer(jcfg, 1)
+    opt = jax.tree.map(lambda s: np.zeros(s.shape, s.dtype),
+                       jax.eval_shape(tx.init, params))
+    state, meta = jax_load_checkpoint(
+        dst, TrainState(params, stats, opt, jnp.asarray(0, jnp.int32)))
+    assert meta["step"] == trainer.step == 1
+    want = to_jax_variables(trainer.nets.state_dict())
+    got_p = dict(_leaves(jax.tree.map(np.asarray, state.params)))
+    got_s = dict(_leaves(jax.tree.map(np.asarray, {
+        k: v for k, v in state.batch_stats.items() if v})))
+    want_p = dict(_leaves({k: v["params"] for k, v in want.items()}))
+    want_s = dict(_leaves({k: v["batch_stats"] for k, v in want.items()
+                           if "batch_stats" in v}))
+    assert got_p.keys() == want_p.keys() and got_s.keys() == want_s.keys()
+    for k in want_p:
+        assert got_p[k].dtype == np.float32, k
+        np.testing.assert_array_equal(got_p[k], want_p[k], err_msg=k)
+    for k in want_s:
+        np.testing.assert_array_equal(got_s[k], want_s[k], err_msg=k)
+
+
 # ---- the slice: forward_depth and one train step ----
 
 def jax_config(compute_dtype):
@@ -404,8 +463,7 @@ def jax_config(compute_dtype):
                      **GENERIC)
 
 
-@pytest.fixture(scope="module")
-def jax_side():
+def jax_bf16_side():
     """The JAX package's forward_depth (eval) and one train step (loss,
     gradients, BN statistics, one Adam update) in bfloat16 and in
     float32, from the same float32 weights and batch."""
@@ -454,6 +512,20 @@ def jax_side():
             sub, (len(SRC), B, H, W))) * 1e-5))
     out["noise"] = noise
     return out
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_bf16_sides():
+    """`jax_bf16_side` under way in a thread from the module's first test
+    on (`JaxSides`; under pytest-xdist from the first test that reads
+    it), while the module tests and the checkpoint test run."""
+    with jax_sides_in_threads(side=lambda sides: jax_bf16_side()) as sides:
+        yield sides
+
+
+@pytest.fixture(scope="module")
+def jax_side(jax_bf16_sides):
+    return jax_bf16_sides["side"].result()
 
 
 def jnp_batch(batch):
@@ -618,59 +690,3 @@ def test_bf16_train_step_matches_jax(jax_side):
         assert (np.abs(new[k] - want) <= 2 * (lr * (1 + 1e-5) + ulp)).all(), k
 
 
-def test_bf16_trainer_checkpoint_converts_to_the_jax_bf16_config(tmp_path):
-    """A bf16 Trainer's saved weights are float32 (the parameters and BN
-    statistics never leave float32), and scripts/convert_checkpoint.py
-    to-jax gives the JAX package's load_checkpoint under its bf16 Config
-    the same parameters and statistics, bit for bit."""
-    import importlib.util
-    import os
-
-    from fusiondepth_tpu.training.checkpoint import \
-        load_checkpoint as jax_load_checkpoint
-    from fusiondepth_tpu.training.train_state import TrainState
-    from fusiondepth_torch.data.synthetic import SyntheticDataset
-    from fusiondepth_torch.training.trainer import Trainer
-
-    cfg = Config(**KW, compute_dtype="bfloat16", beam_encoder=False,
-                 log_dir=str(tmp_path), num_workers=1, log_frequency=1)
-    trainer = Trainer(cfg, train_dataset=SyntheticDataset(cfg, length=2),
-                      device=CPU)
-    assert len(trainer.run_epoch()) == 1
-    src = trainer.save("bf16")
-    saved = torch.load(os.path.join(src, "model.pt"), map_location="cpu")
-    floats = [v for v in saved.values() if v.is_floating_point()]
-    assert floats and all(v.dtype == torch.float32 for v in floats)
-
-    spec = importlib.util.spec_from_file_location(
-        "convert_checkpoint", os.path.join(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__))), "scripts", "convert_checkpoint.py"))
-    script = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(script)
-    dst = str(tmp_path / "jax" / "weights_bf16")
-    assert script.main(["to-jax", src, dst]) == 0
-
-    jcfg = JaxConfig(**KW, compute_dtype="bfloat16", beam_encoder=False)
-    shapes = jax.eval_shape(lambda: JaxFusionNets(jcfg).init(
-        jax.random.PRNGKey(0), batch_size=B))
-    zeros = jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), shapes)
-    params, stats = split_variables(zeros)
-    tx = jax_make_optimizer(jcfg, 1)
-    opt = jax.tree.map(lambda s: np.zeros(s.shape, s.dtype),
-                       jax.eval_shape(tx.init, params))
-    state, meta = jax_load_checkpoint(
-        dst, TrainState(params, stats, opt, jnp.asarray(0, jnp.int32)))
-    assert meta["step"] == trainer.step == 1
-    want = to_jax_variables(trainer.nets.state_dict())
-    got_p = dict(_leaves(jax.tree.map(np.asarray, state.params)))
-    got_s = dict(_leaves(jax.tree.map(np.asarray, {
-        k: v for k, v in state.batch_stats.items() if v})))
-    want_p = dict(_leaves({k: v["params"] for k, v in want.items()}))
-    want_s = dict(_leaves({k: v["batch_stats"] for k, v in want.items()
-                           if "batch_stats" in v}))
-    assert got_p.keys() == want_p.keys() and got_s.keys() == want_s.keys()
-    for k in want_p:
-        assert got_p[k].dtype == np.float32, k
-        np.testing.assert_array_equal(got_p[k], want_p[k], err_msg=k)
-    for k in want_s:
-        np.testing.assert_array_equal(got_s[k], want_s[k], err_msg=k)

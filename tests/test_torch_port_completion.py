@@ -24,7 +24,6 @@ forward), computed once per module. The JAX sides run the JAX package's
 generic path (its TPU layout flags off, test_torch_port_models.GENERIC).
 """
 
-import concurrent.futures
 import os
 
 import numpy as np
@@ -63,7 +62,8 @@ from fusiondepth_torch.training.infer_driver import device_batch
 from fusiondepth_torch.training.trainer import TRAIN_KEYS
 
 from test_torch_port_models import few_torch_threads  # noqa: F401
-from test_torch_port_models import GENERIC, jit, random_variables
+from test_torch_port_models import GENERIC, jax_sides_in_threads, jit, \
+    random_variables
 from test_torch_port_train import assert_trees_close, make_inputs
 
 B, H, W = 2, 64, 96
@@ -178,11 +178,12 @@ def jax_pose_depth_forward():
 def jax_sides():
     """The module's two JAX sides, the R50/R18 forward and the loss
     fixture's step, under way in two threads from the module's first test
-    on (XLA's compile releases the GIL), while the tests that read neither
-    run: {"pose_depth": future, "loss": future}."""
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        yield {"pose_depth": pool.submit(jax_pose_depth_forward),
-               "loss": pool.submit(jax_loss_side)}
+    on (XLA's compile releases the GIL; under pytest-xdist from the test
+    that reads one: `JaxSides`), while the tests that read neither run."""
+    with jax_sides_in_threads(
+            pose_depth=lambda sides: jax_pose_depth_forward(),
+            loss=lambda sides: jax_loss_side()) as sides:
+        yield sides
 
 
 def test_pose_depth_forward_matches_jax_f64(jax_sides):

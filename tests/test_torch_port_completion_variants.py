@@ -21,8 +21,6 @@ Cheaper: one Completor.run_step on the CPU with each accepted variant,
 and the refused use_stereo raising with its reason.
 """
 
-import concurrent.futures
-
 import numpy as np
 import optax
 import pytest
@@ -49,7 +47,8 @@ from fusiondepth_torch.training.train_state import train_step
 from fusiondepth_torch.training.trainer import TRAIN_KEYS
 
 from test_torch_port_models import few_torch_threads  # noqa: F401
-from test_torch_port_models import GENERIC, jit, random_variables
+from test_torch_port_models import GENERIC, jax_sides_in_threads, jit, \
+    random_variables
 from test_torch_port_ops import _box3_f64
 from test_torch_port_train import assert_trees_close, make_inputs
 
@@ -101,10 +100,12 @@ def jax_variant_step():
 @pytest.fixture(scope="module", autouse=True)
 def jax_step():
     """`jax_variant_step` under way in a thread from the module's first
-    test on (XLA's compile releases the GIL): the Completor steps run
-    meanwhile, and the test that reads it comes last."""
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        yield pool.submit(jax_variant_step)
+    test on (XLA's compile releases the GIL; under pytest-xdist from the
+    test that reads it: `JaxSides`): the Completor steps run meanwhile, and
+    the test that reads it comes last."""
+    with jax_sides_in_threads(
+            step=lambda sides: jax_variant_step()) as sides:
+        yield sides["step"]
 
 
 @pytest.mark.parametrize("flag", [

@@ -7,6 +7,11 @@ of tests/test_resnet_torch_parity.py, since the two frameworks' convs sum
 in different orders through a deep stack.
 """
 
+import concurrent.futures
+import contextlib
+import os
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -86,6 +91,50 @@ GENERIC = dict(fold64_encoder=False, fold_stem=False, folded_seam=False,
 def jit(fn, **kwargs):
     """jax.jit with the FAST_COMPILE options."""
     return jax.jit(fn, compiler_options=FAST_COMPILE, **kwargs)
+
+
+class JaxSides:
+    """The JAX sides of a port test module, each a function of this
+    object run once in a thread (XLA's compile releases the GIL). When
+    the module runs in one process they all start with its first test, so
+    that the tests reading none run meanwhile; in a pytest-xdist worker,
+    which may be handed a few of the module's tests only, a side starts
+    when a test first reads it. `sides[name].result()` waits for one (a
+    side may read another through the object it is given)."""
+
+    def __init__(self, pool, jobs):
+        self._pool, self._jobs, self._futures = pool, jobs, {}
+        self._lock = threading.Lock()
+        if os.environ.get("PYTEST_XDIST_WORKER") is None:
+            for name in jobs:
+                self._future(name)
+
+    def _future(self, name):
+        with self._lock:
+            if name not in self._futures:
+                self._futures[name] = self._pool.submit(self._jobs[name],
+                                                        self)
+            return self._futures[name]
+
+    def __getitem__(self, name):
+        return _Side(self, name)
+
+
+class _Side:
+    def __init__(self, sides, name):
+        self._sides, self._name = sides, name
+
+    def result(self):
+        return self._sides._future(self._name).result()
+
+
+@contextlib.contextmanager
+def jax_sides_in_threads(threads=None, **jobs):
+    """A JaxSides of `jobs` (functions of it) on `threads` threads (one a
+    job by default: a job that waits for another must leave it one), for
+    a module fixture."""
+    with concurrent.futures.ThreadPoolExecutor(threads or len(jobs)) as pool:
+        yield JaxSides(pool, jobs)
 
 
 def load_into(module, net, variables):

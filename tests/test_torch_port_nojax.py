@@ -1,6 +1,7 @@
 """The port must run where JAX is not installed: importing every module of
 fusiondepth_torch (stage 2 included: gdc, the KNN and reprojection
-kernels, the refiner and its drivers, completion and the bench), its
+kernels, the refiner and its drivers, the sparse-3D refiner and its
+voxel nets, completion and the bench), its
 CLIs (the trainer, inference, evaluation, inf_gdc, refiner, completor,
 evaluate_completion, gen2cha_completion, export_detection, bench and the
 host data-prep CLIs sparsify, gen2channel, gen2channel_detec and
@@ -31,6 +32,8 @@ import fusiondepth_torch.inf_gdc
 import fusiondepth_torch.refiner
 import fusiondepth_torch.training.trainer
 import fusiondepth_torch.training.refiner_driver
+import fusiondepth_torch.training.refiner3d
+import fusiondepth_torch.models.refine_net3d
 import fusiondepth_torch.training.gdc_driver
 import fusiondepth_torch.gdc.gdc
 import fusiondepth_torch.kernels.knn
@@ -68,5 +71,5 @@ def test_port_imports_no_jax():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     n, verdict = r.stdout.strip().splitlines()[-1].split(" ", 1)
-    assert int(n) >= 65, r.stdout  # every module of the port was imported
+    assert int(n) >= 67, r.stdout  # every module of the port was imported
     assert verdict == "clean", r.stdout

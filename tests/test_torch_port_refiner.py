@@ -7,8 +7,10 @@ road + catxy + deep refine2d decoder at B=2, 64x96, the reference
 refiner's defaults (refine_iter 1, refine_a0, GDC loss on scale 0 only),
 in float64 on both sides with the same weights (carried by
 models/jax_weights) and the same automask noise (the JAX draws replayed).
-The JAX side is one jitted function per module, on the JAX package's
-generic path (its TPU layout flags off, test_torch_port_models.GENERIC),
+The JAX side is one jitted function per module, computed in a thread
+from the module's start while the tests that do not read it run (they
+come first), on the JAX package's generic
+path (its TPU layout flags off, test_torch_port_models.GENERIC),
 with the planes box3's products kept in float64
 (test_torch_port_ops._box3_f64): the JAX Refiner's `entire_loss`
 (make_refine_loss_fn with the stage-1 parameters trainable and their BN
@@ -68,8 +70,8 @@ from fusiondepth_torch.training.refiner import (
 from fusiondepth_torch.training.refiner_driver import INFER_KEYS, Refiner
 
 from test_torch_port_models import few_torch_threads  # noqa: F401
-from test_torch_port_models import GENERIC, jit, load_into, nchw, \
-    random_variables
+from test_torch_port_models import GENERIC, jax_sides_in_threads, jit, \
+    load_into, nchw, random_variables
 from test_torch_port_ops import _box3_f64
 from test_torch_port_train import assert_trees_close
 
@@ -139,180 +141,6 @@ def test_refiner_si_loss_matches_jax():
     got = float(refiner_si_loss(t64(pred), t64(target), 2.0, 0.3))
     assert abs(got - want) < 1e-12
     assert float(refiner_si_loss(t64(pred), t64(target * 0), 2.0, 0.3)) == 0
-
-
-def make_inputs():
-    """The batch of tests/test_refiner_torch_parity.py."""
-    rng = np.random.default_rng(11)
-    F_ = 3
-    color = rng.uniform(0, 1, (B, F_, H, W, 3))
-    color_aug = np.clip(color + rng.normal(0, 0.02, color.shape), 0, 1)
-    two_ch = np.zeros((B, F_, H, W, 2))
-    hit = rng.uniform(size=(B, F_, H, W)) < 0.15
-    d = rng.uniform(2.0, 20.0, (B, F_, H, W))
-    two_ch[..., 0] = np.where(hit, d / 100.0, 0.0)
-    two_ch[..., 1] = np.where(hit, 1.0 / (d + 1.0), 0.0)
-    four_beam = np.where(rng.uniform(size=(B, H, W, 1)) < 0.1,
-                         rng.uniform(3.0, 7.0, (B, H, W, 1)) / 100.0, 0.0)
-    inf_gdc = rng.uniform(0.5, 1.5, (B, H, W, 1))
-    K = np.zeros((B, 4, 4))
-    K[:, 0, 0], K[:, 1, 1] = 0.58 * W, 1.92 * H
-    K[:, 0, 2], K[:, 1, 2] = 0.5 * W, 0.5 * H
-    K[:, 2, 2] = K[:, 3, 3] = 1.0
-    return {"color": color, "color_aug": color_aug, "two_channel": two_ch,
-            "four_beam": four_beam, "inf_gdc": inf_gdc, "K": K,
-            "inv_K": np.linalg.inv(K)}
-
-
-@pytest.fixture(scope="module")
-def jax_side():
-    batch = make_inputs()
-    with jax.enable_x64():
-        cfg = JaxConfig(**KW, train_entire_net=True, pallas_warp=False,
-                        **GENERIC)
-        nets = JaxRefinerNets(cfg)
-        rng = np.random.default_rng(0)
-        frozen = random_variables(
-            lambda: nets.stage1.init(jax.random.PRNGKey(0), batch_size=B),
-            rng, np.float64)
-        refine_params = random_variables(
-            lambda: nets.init_refine(jax.random.PRNGKey(3), batch_size=B),
-            rng, np.float64)
-        stats = {k: v.get("batch_stats", {}) for k, v in frozen.items()}
-        key = jax.random.PRNGKey(42)
-        loss_fn = make_refine_loss_fn(cfg, nets)
-        lr = cfg.learning_rate * B / 8.0
-        tx = optax.adam(lr)
-
-        # the pseudo-3D maps and the refined disparities, read out of the
-        # loss's own trace (one compile of one forward)
-        build, decoder, seen = nets.build_pseudo3d, nets.refine2d, {}
-
-        class RecordingDecoder:
-            def apply(self, *args, **kwargs):
-                seen["refined"] = decoder.apply(*args, **kwargs)
-                return seen["refined"]
-
-        def recording_build(*args):
-            seen["maps"] = build(*args)
-            return seen["maps"]
-
-        def loss_and_maps(trainable, batch, key):
-            # entire_loss: the stage-1 parameters with their fixed BN
-            # statistics
-            fixed = {}
-            for k, p in trainable["stage1"].items():
-                fixed[k] = {"params": p}
-                if stats[k]:
-                    fixed[k]["batch_stats"] = stats[k]
-            nets.build_pseudo3d, nets.refine2d = recording_build, \
-                RecordingDecoder()
-            try:
-                loss, losses = loss_fn(trainable["refine"], fixed, batch,
-                                       key)
-            finally:
-                del nets.build_pseudo3d
-                nets.refine2d = decoder
-            return loss, (losses, seen.pop("maps"), seen.pop("refined"))
-
-        def run(trainable, batch, key):
-            (loss, (losses, maps, refined)), grads = jax.value_and_grad(
-                loss_and_maps, has_aux=True)(trainable, batch, key)
-            rp = trainable["refine"]
-            updates, _ = tx.update(grads["refine"], tx.init(rp), rp)
-            every, _ = tx.update(grads, tx.init(trainable), trainable)
-            return (maps, refined, loss, losses, grads,
-                    optax.apply_updates(rp, updates),
-                    optax.apply_updates(trainable, every))
-
-        trainable = {"refine": refine_params,
-                     "stage1": {k: v["params"] for k, v in frozen.items()}}
-        with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(jax_planes, "box3", _box3_f64)
-            out = jit(run)(trainable, {k: jnp.asarray(x)
-                                       for k, x in batch.items()}, key)
-        maps, refined, loss, losses, grads, new_rp, new_all = jax.tree.map(
-            np.asarray, out)
-        # the automask noise: loss_fn splits once per refine iteration,
-        # _refine_losses once per scale
-        _, sub = jax.random.split(key)
-        noise = []
-        for _ in cfg.scales:
-            sub, s = jax.random.split(sub)
-            noise.append(torch.from_numpy(np.asarray(jax.random.normal(
-                s, (len(SRC), B, H, W))) * 1e-5))
-    return dict(frozen={k: frozen[k] for k in STAGE1},
-                refine_params=refine_params, batch=batch, maps=maps,
-                refined=refined, loss=float(loss), losses=losses,
-                grads=grads["refine"], entire_grads=grads,
-                new_params=new_rp, new_entire=new_all, noise=noise, lr=lr)
-
-
-def port_nets(jax_side, **flags):
-    nets = RefinerNets(Config(**KW, **flags), device=CPU)
-    load_jax(nets, jax_side)
-    return nets
-
-
-def load_jax(nets, jax_side):
-    nets.stage1.load_state_dict(from_jax_variables(jax_side["frozen"]))
-    load_into(nets.refine2d, "refine2d", jax_side["refine_params"])
-
-
-def port_batch(jax_side):
-    return device_batch(jax_side["batch"], CPU, REFINE_KEYS, torch.float64)
-
-
-def test_build_pseudo3d_matches_jax_f64(jax_side):
-    nets = port_nets(jax_side)
-    batch = port_batch(jax_side)
-    outputs, _, _ = nets.frozen_forward(batch, poses=False)
-    maps = nets.build_pseudo3d(batch, outputs)
-    for s in range(4):
-        want = jax_side["maps"][("disp", s)]
-        assert tuple(maps[("disp", s)].shape) == want.shape == (
-            B, H >> s, W >> s, 6)
-        np.testing.assert_allclose(maps[("disp", s)].numpy(), want,
-                                   atol=1e-9, rtol=0, err_msg=str(s))
-
-
-def test_refine_decoder_matches_jax_f64(jax_side):
-    """The road + catxy + deep decoder on the frozen features and the JAX
-    pseudo-3D maps."""
-    nets = port_nets(jax_side)
-    batch = port_batch(jax_side)
-    _, feats, beam_feats = nets.frozen_forward(batch, poses=False)
-    maps = {k: torch.tensor(v) for k, v in jax_side["maps"].items()}
-    with torch.no_grad():
-        got = nets.refine(feats, beam_feats, maps)
-    for k, want in jax_side["refined"].items():
-        np.testing.assert_allclose(got[k].numpy(), want, atol=1e-9, rtol=0,
-                                   err_msg=str(k))
-
-
-def test_refine_loss_grads_and_one_adam_step_match_jax_f64(jax_side):
-    """refine_loss and every refine2d gradient leaf against
-    make_refine_loss_fn under jax.value_and_grad, then the refine decoder
-    after one step of the refiner's Adam against optax.adam."""
-    nets = port_nets(jax_side)
-    cfg = Config(**KW)
-    loss, losses = refine_loss(cfg, nets, port_batch(jax_side),
-                               noise=[jax_side["noise"]])
-    assert abs(loss.item() - jax_side["loss"]) < 1e-7, (
-        loss.item(), jax_side["loss"])
-    assert set(losses) == set(jax_side["losses"])
-    loss.backward()
-    assert all(p.grad is None for p in nets.stage1.parameters())
-    grads = {f"refine2d.{n}": p.grad
-             for n, p in nets.refine2d.named_parameters()}
-    assert_trees_close(to_jax_variables(grads)["refine2d"],
-                       jax_side["grads"], rtol=1e-5, atol=1e-9)
-    opt = torch.optim.Adam(nets.refine2d.parameters(), lr=jax_side["lr"],
-                           eps=1e-8)
-    opt.step()
-    got = to_jax_variables({f"refine2d.{n}": p.detach() for n, p in
-                            nets.refine2d.named_parameters()})["refine2d"]
-    assert_trees_close(got, jax_side["new_params"], rtol=0, atol=1e-6)
 
 
 def test_refine_decoder_tanh_head_matches_flax():
@@ -428,6 +256,204 @@ def test_refiner_epoch_checkpoint_and_refined_evaluation(tmp_path):
     assert all(np.isfinite(v) for v in got.values())
 
 
+def test_refiner_cli_needs_a_card(monkeypatch, tmp_path):
+    from fusiondepth_torch import refiner as cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    # the CLI's KITTI datasets read no file until a batch is drawn
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        cli.main(["--num_layers", "18", "--height", "64", "--width", "96",
+                  "--weights_init", "scratch", "--log_dir", str(tmp_path),
+                  "--data_path", str(tmp_path)])
+
+
+def make_inputs():
+    """The batch of tests/test_refiner_torch_parity.py."""
+    rng = np.random.default_rng(11)
+    F_ = 3
+    color = rng.uniform(0, 1, (B, F_, H, W, 3))
+    color_aug = np.clip(color + rng.normal(0, 0.02, color.shape), 0, 1)
+    two_ch = np.zeros((B, F_, H, W, 2))
+    hit = rng.uniform(size=(B, F_, H, W)) < 0.15
+    d = rng.uniform(2.0, 20.0, (B, F_, H, W))
+    two_ch[..., 0] = np.where(hit, d / 100.0, 0.0)
+    two_ch[..., 1] = np.where(hit, 1.0 / (d + 1.0), 0.0)
+    four_beam = np.where(rng.uniform(size=(B, H, W, 1)) < 0.1,
+                         rng.uniform(3.0, 7.0, (B, H, W, 1)) / 100.0, 0.0)
+    inf_gdc = rng.uniform(0.5, 1.5, (B, H, W, 1))
+    K = np.zeros((B, 4, 4))
+    K[:, 0, 0], K[:, 1, 1] = 0.58 * W, 1.92 * H
+    K[:, 0, 2], K[:, 1, 2] = 0.5 * W, 0.5 * H
+    K[:, 2, 2] = K[:, 3, 3] = 1.0
+    return {"color": color, "color_aug": color_aug, "two_channel": two_ch,
+            "four_beam": four_beam, "inf_gdc": inf_gdc, "K": K,
+            "inv_K": np.linalg.inv(K)}
+
+
+def jax_refine_side():
+    batch = make_inputs()
+    with jax.enable_x64():
+        cfg = JaxConfig(**KW, train_entire_net=True, pallas_warp=False,
+                        **GENERIC)
+        nets = JaxRefinerNets(cfg)
+        rng = np.random.default_rng(0)
+        frozen = random_variables(
+            lambda: nets.stage1.init(jax.random.PRNGKey(0), batch_size=B),
+            rng, np.float64)
+        refine_params = random_variables(
+            lambda: nets.init_refine(jax.random.PRNGKey(3), batch_size=B),
+            rng, np.float64)
+        stats = {k: v.get("batch_stats", {}) for k, v in frozen.items()}
+        key = jax.random.PRNGKey(42)
+        loss_fn = make_refine_loss_fn(cfg, nets)
+        lr = cfg.learning_rate * B / 8.0
+        tx = optax.adam(lr)
+
+        # the pseudo-3D maps and the refined disparities, read out of the
+        # loss's own trace (one compile of one forward)
+        build, decoder, seen = nets.build_pseudo3d, nets.refine2d, {}
+
+        class RecordingDecoder:
+            def apply(self, *args, **kwargs):
+                seen["refined"] = decoder.apply(*args, **kwargs)
+                return seen["refined"]
+
+        def recording_build(*args):
+            seen["maps"] = build(*args)
+            return seen["maps"]
+
+        def loss_and_maps(trainable, batch, key):
+            # entire_loss: the stage-1 parameters with their fixed BN
+            # statistics
+            fixed = {}
+            for k, p in trainable["stage1"].items():
+                fixed[k] = {"params": p}
+                if stats[k]:
+                    fixed[k]["batch_stats"] = stats[k]
+            nets.build_pseudo3d, nets.refine2d = recording_build, \
+                RecordingDecoder()
+            try:
+                loss, losses = loss_fn(trainable["refine"], fixed, batch,
+                                       key)
+            finally:
+                del nets.build_pseudo3d
+                nets.refine2d = decoder
+            return loss, (losses, seen.pop("maps"), seen.pop("refined"))
+
+        def run(trainable, batch, key):
+            (loss, (losses, maps, refined)), grads = jax.value_and_grad(
+                loss_and_maps, has_aux=True)(trainable, batch, key)
+            rp = trainable["refine"]
+            updates, _ = tx.update(grads["refine"], tx.init(rp), rp)
+            every, _ = tx.update(grads, tx.init(trainable), trainable)
+            return (maps, refined, loss, losses, grads,
+                    optax.apply_updates(rp, updates),
+                    optax.apply_updates(trainable, every))
+
+        trainable = {"refine": refine_params,
+                     "stage1": {k: v["params"] for k, v in frozen.items()}}
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(jax_planes, "box3", _box3_f64)
+            out = jit(run)(trainable, {k: jnp.asarray(x)
+                                       for k, x in batch.items()}, key)
+        maps, refined, loss, losses, grads, new_rp, new_all = jax.tree.map(
+            np.asarray, out)
+        # the automask noise: loss_fn splits once per refine iteration,
+        # _refine_losses once per scale
+        _, sub = jax.random.split(key)
+        noise = []
+        for _ in cfg.scales:
+            sub, s = jax.random.split(sub)
+            noise.append(torch.from_numpy(np.asarray(jax.random.normal(
+                s, (len(SRC), B, H, W))) * 1e-5))
+    return dict(frozen={k: frozen[k] for k in STAGE1},
+                refine_params=refine_params, batch=batch, maps=maps,
+                refined=refined, loss=float(loss), losses=losses,
+                grads=grads["refine"], entire_grads=grads,
+                new_params=new_rp, new_entire=new_all, noise=noise, lr=lr)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_refine_step():
+    """`jax_refine_side` under way in a thread from the module's first test
+    on (XLA's compile releases the GIL; under pytest-xdist from the first
+    test that reads it: `JaxSides`): the tests above run meanwhile."""
+    with jax_sides_in_threads(step=lambda sides: jax_refine_side()) as sides:
+        yield sides["step"]
+
+
+@pytest.fixture(scope="module")
+def jax_side(jax_refine_step):
+    return jax_refine_step.result()
+
+
+def port_nets(jax_side, **flags):
+    nets = RefinerNets(Config(**KW, **flags), device=CPU)
+    load_jax(nets, jax_side)
+    return nets
+
+
+def load_jax(nets, jax_side):
+    nets.stage1.load_state_dict(from_jax_variables(jax_side["frozen"]))
+    load_into(nets.refine2d, "refine2d", jax_side["refine_params"])
+
+
+def port_batch(jax_side):
+    return device_batch(jax_side["batch"], CPU, REFINE_KEYS, torch.float64)
+
+
+def test_build_pseudo3d_matches_jax_f64(jax_side):
+    nets = port_nets(jax_side)
+    batch = port_batch(jax_side)
+    outputs, _, _ = nets.frozen_forward(batch, poses=False)
+    maps = nets.build_pseudo3d(batch, outputs)
+    for s in range(4):
+        want = jax_side["maps"][("disp", s)]
+        assert tuple(maps[("disp", s)].shape) == want.shape == (
+            B, H >> s, W >> s, 6)
+        np.testing.assert_allclose(maps[("disp", s)].numpy(), want,
+                                   atol=1e-9, rtol=0, err_msg=str(s))
+
+
+def test_refine_decoder_matches_jax_f64(jax_side):
+    """The road + catxy + deep decoder on the frozen features and the JAX
+    pseudo-3D maps."""
+    nets = port_nets(jax_side)
+    batch = port_batch(jax_side)
+    _, feats, beam_feats = nets.frozen_forward(batch, poses=False)
+    maps = {k: torch.tensor(v) for k, v in jax_side["maps"].items()}
+    with torch.no_grad():
+        got = nets.refine(feats, beam_feats, maps)
+    for k, want in jax_side["refined"].items():
+        np.testing.assert_allclose(got[k].numpy(), want, atol=1e-9, rtol=0,
+                                   err_msg=str(k))
+
+
+def test_refine_loss_grads_and_one_adam_step_match_jax_f64(jax_side):
+    """refine_loss and every refine2d gradient leaf against
+    make_refine_loss_fn under jax.value_and_grad, then the refine decoder
+    after one step of the refiner's Adam against optax.adam."""
+    nets = port_nets(jax_side)
+    cfg = Config(**KW)
+    loss, losses = refine_loss(cfg, nets, port_batch(jax_side),
+                               noise=[jax_side["noise"]])
+    assert abs(loss.item() - jax_side["loss"]) < 1e-7, (
+        loss.item(), jax_side["loss"])
+    assert set(losses) == set(jax_side["losses"])
+    loss.backward()
+    assert all(p.grad is None for p in nets.stage1.parameters())
+    grads = {f"refine2d.{n}": p.grad
+             for n, p in nets.refine2d.named_parameters()}
+    assert_trees_close(to_jax_variables(grads)["refine2d"],
+                       jax_side["grads"], rtol=1e-5, atol=1e-9)
+    opt = torch.optim.Adam(nets.refine2d.parameters(), lr=jax_side["lr"],
+                           eps=1e-8)
+    opt.step()
+    got = to_jax_variables({f"refine2d.{n}": p.detach() for n, p in
+                            nets.refine2d.named_parameters()})["refine2d"]
+    assert_trees_close(got, jax_side["new_params"], rtol=0, atol=1e-6)
+
+
 # ---- train_entire_net ----
 
 def entire_grads(nets):
@@ -496,22 +522,3 @@ def to_jax(refiner, stage1=False):
     if stage1:
         nets.update(refiner.nets.stage1.named_children())
     return to_jax_variables(torch.nn.ModuleDict(nets).state_dict())
-
-
-@pytest.mark.parametrize("flag", ["refineUnet", "refine_deep"])
-def test_refiner_unported_options_raise(flag, tmp_path):
-    cfg = Config(num_layers=18, height=64, width=96, batch_size=2,
-                 weights_init="scratch", log_dir=str(tmp_path), **{flag: True})
-    with pytest.raises(NotImplementedError):
-        Refiner(cfg, device="cpu")
-
-
-def test_refiner_cli_needs_a_card(monkeypatch, tmp_path):
-    from fusiondepth_torch import refiner as cli
-
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    # the CLI's KITTI datasets read no file until a batch is drawn
-    with pytest.raises(RuntimeError, match="CUDA card"):
-        cli.main(["--num_layers", "18", "--height", "64", "--width", "96",
-                  "--weights_init", "scratch", "--log_dir", str(tmp_path),
-                  "--data_path", str(tmp_path)])

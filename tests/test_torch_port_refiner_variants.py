@@ -18,11 +18,8 @@ rtol 1e-5 / atol 1e-9.
 
 Cheaper: one Refiner.run_step on the CPU with each option the refiner
 accepts now, and its refusals (v1_multiscale and the shared pose type,
-which the JAX refiner cannot trace, and the sparse-3D refiners) raising
-with their reason.
+which the JAX refiner cannot trace) raising with their reason.
 """
-
-import concurrent.futures
 
 import numpy as np
 import pytest
@@ -44,7 +41,8 @@ from fusiondepth_torch.training.refiner import REFINE_KEYS, RefinerNets, \
 from fusiondepth_torch.training.refiner_driver import Refiner
 
 from test_torch_port_models import few_torch_threads  # noqa: F401
-from test_torch_port_models import GENERIC, jit, random_variables
+from test_torch_port_models import GENERIC, jax_sides_in_threads, jit, \
+    random_variables
 from test_torch_port_ops import _box3_f64
 from test_torch_port_refiner import entire_grads, load_jax
 from test_torch_port_train import assert_trees_close
@@ -103,10 +101,12 @@ def jax_variant_step():
 @pytest.fixture(scope="module", autouse=True)
 def jax_step():
     """`jax_variant_step` under way in a thread from the module's first
-    test on (XLA's compile releases the GIL): the Refiner steps run
-    meanwhile, and the test that reads it comes last."""
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        yield pool.submit(jax_variant_step)
+    test on (XLA's compile releases the GIL; under pytest-xdist from the
+    test that reads it: `JaxSides`): the Refiner steps run meanwhile, and
+    the test that reads it comes last."""
+    with jax_sides_in_threads(
+            step=lambda sides: jax_variant_step()) as sides:
+        yield sides["step"]
 
 
 @pytest.mark.parametrize("flag", [
@@ -154,8 +154,7 @@ def test_refiner_steps_with_each_accepted_option(flag, tmp_path):
 
 @pytest.mark.parametrize("flag,reason", [
     (dict(v1_multiscale=True), "warped_planes"),
-    (dict(pose_model_type="shared"), "one pyramid per frame"),
-    (dict(refine_shallow=True), "refine_shallow")])
+    (dict(pose_model_type="shared"), "one pyramid per frame")])
 def test_refiner_refused_options_raise_with_their_reason(flag, reason,
                                                          tmp_path):
     cfg = Config(num_layers=18, height=H, width=W, batch_size=B,

@@ -43,7 +43,8 @@ from fusiondepth_torch.training.eval_driver import predict_disparities
 from fusiondepth_torch.training.infer_driver import Infer, device_batch
 
 from test_torch_port_models import few_torch_threads  # noqa: F401
-from test_torch_port_models import jit, random_variables
+from test_torch_port_models import jax_sides_in_threads, jit, \
+    random_variables
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, H, W = 2, 64, 96
@@ -85,61 +86,6 @@ class FramesDataset:
                    for k in self[0]}
 
 
-@pytest.fixture(scope="module")
-def jax_side():
-    """JAX variables and every JAX result the tests compare with."""
-    frames = FramesDataset(4)
-    batch = _f64(make_batch(JCFG, B, seed=0))
-    with jax.enable_x64():
-        nets = JaxFusionNets(JCFG)
-        v = random_variables(lambda: nets.init(jax.random.PRNGKey(0)),
-                             np.random.default_rng(0), np.float64)
-
-        # jitted: one compile of the whole forward costs less on a CPU
-        # than the eager per-op compiles (about 17 s against 38 s); the
-        # weights are an argument, not constants folded into the program
-        fwd_fn = jit(lambda v, b: nets.forward_depth(v, b, train=False)[0])
-
-        def disp(b):
-            out = fwd_fn(v, {k: jnp.asarray(x) for k, x in b.items()})
-            return {k: np.asarray(x) for k, x in out.items()}
-
-        fwd = disp(batch)
-        frame_disp, post = [], []
-        for b in frames.batches():
-            d = disp(b)[("disp", 0)][..., 0]
-            flipped = {k: (x[..., ::-1, :] if k in JAX_FLIP_KEYS else x)
-                       for k, x in b.items()}
-            d_f = disp(flipped)[("disp", 0)][..., 0]
-            frame_disp.extend(d)
-            post.extend(flip_postprocess(d, d_f[:, :, ::-1]))
-    return dict(variables={k: v[k] for k in NETS if k in v}, batch=batch,
-                fwd=fwd, frames=frames, frame_disp=frame_disp, post=post,
-                fwd_fn=fwd_fn)
-
-
-@pytest.fixture(scope="module")
-def port_nets(jax_side):
-    nets = FusionNets(CFG, device=CPU)
-    nets.load_state_dict(from_jax_variables(jax_side["variables"]))
-    return nets
-
-
-def test_forward_depth_matches_jax_f64(jax_side, port_nets):
-    with torch.no_grad():
-        out, feats = port_nets.forward_depth(
-            device_batch(jax_side["batch"], CPU), train=False)
-    want = jax_side["fwd"]
-    assert set(out) == set(want) == {("disp", s) for s in CFG.scales}
-    for k in want:
-        assert out[k].dtype == torch.float64
-        assert tuple(out[k].shape) == want[k].shape == (
-            B, H >> k[1], W >> k[1], 1)
-        np.testing.assert_allclose(out[k].numpy(), want[k], atol=1e-9,
-                                   rtol=0, err_msg=str(k))
-    assert [f.shape[1] for f in feats] == [64, 64, 128, 256, 512]
-
-
 def test_forward_depth_variant_matches_jax():
     """The fusion variants of the depth branch, all in one configuration
     to keep to one JAX compile: the LiDAR concatenated to the encoder
@@ -177,6 +123,75 @@ def test_forward_depth_variant_matches_jax():
         assert tuple(g.shape) == w.shape, name
         np.testing.assert_allclose(g.numpy(), w, atol=1e-9, rtol=0,
                                    err_msg=name)
+
+
+def jax_slice_side():
+    """JAX variables and every JAX result the tests compare with."""
+    frames = FramesDataset(4)
+    batch = _f64(make_batch(JCFG, B, seed=0))
+    with jax.enable_x64():
+        nets = JaxFusionNets(JCFG)
+        v = random_variables(lambda: nets.init(jax.random.PRNGKey(0)),
+                             np.random.default_rng(0), np.float64)
+
+        # jitted: one compile of the whole forward costs less on a CPU
+        # than the eager per-op compiles (about 17 s against 38 s); the
+        # weights are an argument, not constants folded into the program
+        fwd_fn = jit(lambda v, b: nets.forward_depth(v, b, train=False)[0])
+
+        def disp(b):
+            out = fwd_fn(v, {k: jnp.asarray(x) for k, x in b.items()})
+            return {k: np.asarray(x) for k, x in out.items()}
+
+        fwd = disp(batch)
+        frame_disp, post = [], []
+        for b in frames.batches():
+            d = disp(b)[("disp", 0)][..., 0]
+            flipped = {k: (x[..., ::-1, :] if k in JAX_FLIP_KEYS else x)
+                       for k, x in b.items()}
+            d_f = disp(flipped)[("disp", 0)][..., 0]
+            frame_disp.extend(d)
+            post.extend(flip_postprocess(d, d_f[:, :, ::-1]))
+    return dict(variables={k: v[k] for k in NETS if k in v}, batch=batch,
+                fwd=fwd, frames=frames, frame_disp=frame_disp, post=post,
+                fwd_fn=fwd_fn)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_slice_future():
+    """`jax_slice_side` under way in a thread from the module's first test
+    on (XLA's compile releases the GIL; under pytest-xdist from the first
+    test that reads it: `JaxSides`), while the variant test, which
+    compiles its own JAX forward, runs."""
+    with jax_sides_in_threads(side=lambda sides: jax_slice_side()) as sides:
+        yield sides["side"]
+
+
+@pytest.fixture(scope="module")
+def jax_side(jax_slice_future):
+    return jax_slice_future.result()
+
+
+@pytest.fixture(scope="module")
+def port_nets(jax_side):
+    nets = FusionNets(CFG, device=CPU)
+    nets.load_state_dict(from_jax_variables(jax_side["variables"]))
+    return nets
+
+
+def test_forward_depth_matches_jax_f64(jax_side, port_nets):
+    with torch.no_grad():
+        out, feats = port_nets.forward_depth(
+            device_batch(jax_side["batch"], CPU), train=False)
+    want = jax_side["fwd"]
+    assert set(out) == set(want) == {("disp", s) for s in CFG.scales}
+    for k in want:
+        assert out[k].dtype == torch.float64
+        assert tuple(out[k].shape) == want[k].shape == (
+            B, H >> k[1], W >> k[1], 1)
+        np.testing.assert_allclose(out[k].numpy(), want[k], atol=1e-9,
+                                   rtol=0, err_msg=str(k))
+    assert [f.shape[1] for f in feats] == [64, 64, 128, 256, 512]
 
 
 def test_infer_run_split_matches_jax(jax_side, tmp_path):

@@ -16,10 +16,11 @@ frame_ids (0, -1, 1, "s"):
 - B: the shared pose type + use_stereo + predictive_mask with
   disable_automasking (the planes formulation: the depth encoder over
   B x 4 frames in one pass, the mask decoder's 3 channels, its BCE).
-The JAX side of each is one jitted function, computed once per module,
-on the JAX package's generic path (its TPU layout flags off,
-test_torch_port_models.GENERIC), with the JAX planes box3's products
-kept in float64
+The JAX side of each is one jitted function, computed once per module
+in a thread from its first test on (test_torch_port_models.JaxSides;
+the whole-step tests come last), on the JAX package's generic path (its
+TPU layout flags off, test_torch_port_models.GENERIC), with the JAX
+planes box3's products kept in float64
 (test_torch_port_ops._box3_f64): the JAX box3 rounds them to float32 even
 under x64, which moves B's mask-weighted decoder gradients by up to 7e-9,
 beyond the 1e-9 absolute bound.
@@ -88,8 +89,8 @@ from fusiondepth_torch.training.train_state import make_optimizer, \
 from fusiondepth_torch.training.trainer import TRAIN_KEYS
 
 from test_torch_port_models import few_torch_threads  # noqa: F401
-from test_torch_port_models import GENERIC, jit, load_into, \
-    random_variables
+from test_torch_port_models import GENERIC, jax_sides_in_threads, jit, \
+    load_into, random_variables
 from test_torch_port_ops import _box3_f64
 from test_torch_port_train import assert_trees_close
 
@@ -229,55 +230,14 @@ def jax_variant_steps():
         return dict(zip(CONFIGS, pool.map(jax_variant_step, CONFIGS)))
 
 
-@pytest.fixture(scope="module", params=list(CONFIGS))
-def jax_step(request):
-    return jax_variant_steps()[request.param]
-
-
-def test_variant_step_matches_jax_f64(jax_step):
-    """One train_step of configuration A or B: the training-mode forward
-    it runs (disparities, poses, masks) and A's automask selection maps,
-    its loss, every gradient leaf,
-    and the parameters and BN statistics after the Adam update. The
-    beam-pose encoder is in both trees and read by neither configuration:
-    JAX's gradient there is 0, the port's None (A has none)."""
-    cfg = Config(**jax_step["kw"])
-    nets = FusionNets(cfg, device=CPU)
-    nets.load_state_dict(from_jax_variables(jax_step["variables"]))
-    forward, seen = nets.forward, {}
-
-    def recording_forward(*args, **kwargs):
-        seen["out"] = forward(*args, **kwargs)
-        return seen["out"]
-
-    nets.forward = recording_forward
-    opt, sched = make_optimizer(cfg, nets, STEPS_PER_EPOCH)
-    losses = train_step(cfg, nets, opt, sched,
-                        device_batch(jax_step["batch"], CPU, TRAIN_KEYS,
-                                     torch.float64),
-                        noise=jax_step["noise"])
-    for (name, get), want in zip(forward_keys(cfg), jax_step["fwd"]):
-        got = get(seen["out"]).detach().numpy()
-        assert got.shape == want.shape, name
-        np.testing.assert_allclose(got, want, atol=1e-9, rtol=0,
-                                   err_msg=name)
-    assert abs(float(losses["loss"]) - jax_step["loss"]) < 1e-7, (
-        float(losses["loss"]), jax_step["loss"])
-    unread = {n for n, p in nets.named_parameters() if p.grad is None}
-    assert unread == ({n for n, _ in nets.beam_encoder_pose.named_parameters(
-        prefix="beam_encoder_pose")} if cfg.beam_encoder else set())
-    grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
-             for n, p in nets.named_parameters()}
-    assert_trees_close({k: v["params"]
-                        for k, v in to_jax_variables(grads).items()},
-                       jax_step["grads"], rtol=1e-5, atol=1e-9)
-    got = to_jax_variables(nets.state_dict())
-    assert_trees_close({k: v["params"] for k, v in got.items()},
-                       jax_step["new_params"], rtol=0, atol=1e-6)
-    assert_trees_close({k: v["batch_stats"] for k, v in got.items()
-                        if "batch_stats" in v},
-                       {k: v for k, v in jax_step["new_stats"].items() if v},
-                       rtol=0, atol=1e-9)
+@pytest.fixture(scope="module", autouse=True)
+def jax_variant_sides():
+    """`jax_variant_steps` under way in a thread from the module's first
+    test on (test_torch_port_models.JaxSides; under pytest-xdist from the
+    first test that reads it), while the tests before the steps' run."""
+    with jax_sides_in_threads(steps=lambda sides: jax_variant_steps()) \
+            as sides:
+        yield sides
 
 
 # ---- the pose nets ----
@@ -631,3 +591,56 @@ def test_host_clis_write_the_root_scripts_files(fixture_drive, tmp_path,
             assert len(a["data"]) == len(b["data"]) == 3
             for x, y in zip(a["data"], b["data"]):
                 np.testing.assert_array_equal(x, y)
+
+
+# ---- whole steps (their JAX sides computed meanwhile) ----
+
+@pytest.fixture(scope="module", params=list(CONFIGS))
+def jax_step(request, jax_variant_sides):
+    return jax_variant_sides["steps"].result()[request.param]
+
+
+def test_variant_step_matches_jax_f64(jax_step):
+    """One train_step of configuration A or B: the training-mode forward
+    it runs (disparities, poses, masks) and A's automask selection maps,
+    its loss, every gradient leaf,
+    and the parameters and BN statistics after the Adam update. The
+    beam-pose encoder is in both trees and read by neither configuration:
+    JAX's gradient there is 0, the port's None (A has none)."""
+    cfg = Config(**jax_step["kw"])
+    nets = FusionNets(cfg, device=CPU)
+    nets.load_state_dict(from_jax_variables(jax_step["variables"]))
+    forward, seen = nets.forward, {}
+
+    def recording_forward(*args, **kwargs):
+        seen["out"] = forward(*args, **kwargs)
+        return seen["out"]
+
+    nets.forward = recording_forward
+    opt, sched = make_optimizer(cfg, nets, STEPS_PER_EPOCH)
+    losses = train_step(cfg, nets, opt, sched,
+                        device_batch(jax_step["batch"], CPU, TRAIN_KEYS,
+                                     torch.float64),
+                        noise=jax_step["noise"])
+    for (name, get), want in zip(forward_keys(cfg), jax_step["fwd"]):
+        got = get(seen["out"]).detach().numpy()
+        assert got.shape == want.shape, name
+        np.testing.assert_allclose(got, want, atol=1e-9, rtol=0,
+                                   err_msg=name)
+    assert abs(float(losses["loss"]) - jax_step["loss"]) < 1e-7, (
+        float(losses["loss"]), jax_step["loss"])
+    unread = {n for n, p in nets.named_parameters() if p.grad is None}
+    assert unread == ({n for n, _ in nets.beam_encoder_pose.named_parameters(
+        prefix="beam_encoder_pose")} if cfg.beam_encoder else set())
+    grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
+             for n, p in nets.named_parameters()}
+    assert_trees_close({k: v["params"]
+                        for k, v in to_jax_variables(grads).items()},
+                       jax_step["grads"], rtol=1e-5, atol=1e-9)
+    got = to_jax_variables(nets.state_dict())
+    assert_trees_close({k: v["params"] for k, v in got.items()},
+                       jax_step["new_params"], rtol=0, atol=1e-6)
+    assert_trees_close({k: v["batch_stats"] for k, v in got.items()
+                        if "batch_stats" in v},
+                       {k: v for k, v in jax_step["new_stats"].items() if v},
+                       rtol=0, atol=1e-9)
