@@ -326,7 +326,9 @@ KERNELS.update({BF16_KERNELS[name]: KERNELS[name] for name in BF16_KERNELS})
 # source -> the kernels whose registers and spills the ptxas line gives
 # (mangled-name fragments: the KNN at k = 10 and the reprojection forward at
 # C = 3, as GDC and the train step launch them)
-PTXAS_KERNELS = {"conv3x3.cu": ("conv3x3_fwd_kernel", "conv3x3_wgrad_kernel"),
+PTXAS_KERNELS = {"conv3x3.cu": ("conv3x3_fwd_kernel", "conv3x3_wgrad_kernel",
+                                "conv3x3_fwd_bf16_kernel",
+                                "conv3x3_wgrad_bf16_kernel"),
                  "maxpool3x3s2.cu": ("maxpool3x3s2_bwd_kernel",),
                  "warp.cu": ("warp_fwd_kernel", "warp_bwd_kernel"),
                  "reproj.cu": ("reproj_bwd_kernel", "reproj_fwd_kernelIfLi3E",
@@ -593,6 +595,70 @@ def edge_calls(dev):
     return calls + reproj_edge_calls(dev)
 
 
+def bf16_edge_calls(dev):
+    """The conv cases of `edge_calls` in bfloat16 (the reflect conv's bias
+    stays float32), where the bf16 kernels' staging changes path: ragged
+    tiles, Ci and Co no multiple of 16, the 2-channel second input, 2x2 and
+    1x1 maps, a positive BN shift, W no multiple of 8; convs whose inputs
+    are views at an odd bf16 offset (contiguous, not 4-byte aligned); and
+    convs at completion's decoder shapes (BASELINE config 5, batch
+    COMPLETION_BATCH): the stride-32 map 11 x 38 with Ci 2048, the skip
+    concat of 256 + 1024 channels at 22 x 76, and a scale-0 conv at
+    352 x 1216, each forward, dgrad and wgrad."""
+    bf = torch.bfloat16
+
+    def cast(name, i, a):
+        keep = name == "conv3x3_reflect" and i == 2  # the float32 bias
+        return a.to(bf) if torch.is_tensor(a) and not keep else a
+
+    calls = [(BF16_KERNELS[name], [cast(name, i, a) for i, a in
+                                   enumerate(args)],
+              {k: cast(name, -1, v) for k, v in kwargs.items()})
+             for name, args, kwargs in edge_calls(dev)
+             if name.startswith("conv3x3")]
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=g, device=dev)).to(bf)
+
+    def odd_view(t):  # contiguous, one bf16 past an aligned start
+        buf = torch.empty(t.numel() + 1, device=dev, dtype=t.dtype)
+        buf[1:] = t.flatten()
+        return buf[1:].view(t.shape)
+
+    B, C0, C1, Co, H, W = 2, 16, 8, 24, 20, 72
+    x0, x1, gy = randn(B, C0, H, W), randn(B, C1, H, W), randn(B, Co, H, W)
+    w = randn(Co, C0 + C1, 3, 3, scale=0.2)
+    bias = 0.1 * torch.randn(Co, generator=g, device=dev)
+    calls += [("conv3x3_reflect_bf16", [x0, odd_view(w), bias,
+                                        odd_view(x1), True], {}),
+              ("conv3x3_dgrad_bf16", [odd_view(gy), w, C0],
+               {"reflect": True}),
+              ("conv3x3_wgrad_bf16", [gy, odd_view(x0), x1],
+               {"reflect": True})]
+    C = 32
+    x, gz = randn(B, C, H, W), randn(B, C, H, W)
+    wz = randn(C, C, 3, 3, scale=C ** -0.5 / 3)
+    s = (0.5 + torch.rand(C, generator=g, device=dev)).to(bf)
+    t = (0.2 + torch.rand(C, generator=g, device=dev)).to(bf)
+    calls += [("conv3x3_zero_act_bf16", [odd_view(x), wz, s, t], {}),
+              ("conv3x3_dgrad_bf16", [gz, odd_view(wz), C],
+               {"reflect": False}),
+              ("conv3x3_wgrad_bf16", [odd_view(gz), x, None],
+               {"reflect": False, "scale": s, "shift": t})]
+    B = COMPLETION_BATCH
+    for C0, C1, Co, H, W in ((2048, 0, 256, 11, 38), (256, 1024, 256, 22, 76),
+                             (16, 0, 16) + COMPLETION_HW):
+        x0, gy = randn(B, C0, H, W), randn(B, Co, H, W)
+        x1 = randn(B, C1, H, W) if C1 else None
+        w = randn(Co, C0 + C1, 3, 3, scale=(C0 + C1) ** -0.5 / 3)
+        bias = 0.1 * torch.randn(Co, generator=g, device=dev)
+        calls += [("conv3x3_reflect_bf16", [x0, w, bias, x1, True], {}),
+                  ("conv3x3_dgrad_bf16", [gy, w, C0], {"reflect": True}),
+                  ("conv3x3_wgrad_bf16", [gy, x0, x1], {"reflect": True})]
+    return calls
+
+
 def _tensors(out):
     return [t for t in (out if isinstance(out, tuple) else (out,))
             if t is not None]
@@ -621,6 +687,44 @@ def base_name(name: str) -> str:
     return name[:-5] if name.endswith("_bf16") else name
 
 
+def output_holds(name, a, b) -> bool:
+    """Whether one output `a` of kernel `name` ("<kernel>" or
+    "<kernel>_bf16") holds against the plain version's `b` (see
+    check_kernels; not the KNN)."""
+    kind = base_name(name)
+    if a.dtype == torch.bfloat16:
+        a, b = a.float(), b.float()
+        d = (a - b).abs()
+        rnd = BF16_ROUND * b.abs()
+        if kind.startswith("maxpool"):
+            return torch.equal(a.isnan(), b.isnan()) and torch.equal(
+                a.nan_to_num(), b.nan_to_num())
+        if kind == "warp":
+            return bool((d <= rnd + WARP_ATOL).all())
+        if kind == "conv3x3_wgrad":
+            return bool((d <= rnd + WGRAD_REL * b.abs().max()).all())
+        if kind == "reproj":
+            return bool((d <= rnd + REPROJ_ATOL).all())
+        if kind == "reproj_bwd":
+            return torch.allclose(a, b, rtol=REPROJ_BWD_TOL["rtol"]
+                                  + BF16_ROUND, atol=REPROJ_BWD_TOL["atol"])
+        return torch.allclose(a, b, rtol=CONV_TOL["rtol"] + BF16_ROUND,
+                              atol=CONV_TOL["atol"])
+    e = (a - b).nan_to_num().abs().max().item()
+    if kind.startswith("maxpool"):
+        return torch.equal(a.isnan(), b.isnan()) and torch.equal(
+            a.nan_to_num(), b.nan_to_num())
+    if kind.startswith("warp"):
+        return e <= WARP_ATOL
+    if kind == "conv3x3_wgrad":
+        return e <= WGRAD_REL * b.abs().max().item()
+    if kind == "reproj":
+        return e <= REPROJ_ATOL
+    if kind == "reproj_bwd":
+        return torch.allclose(a, b, **REPROJ_BWD_TOL)
+    return torch.allclose(a, b, **CONV_TOL)
+
+
 def check_kernels(calls):
     """Each call through its kernel and its plain version; returns
     {kernel: max abs error}. The pools must agree bit for bit (NaN where
@@ -634,7 +738,7 @@ def check_kernels(calls):
     that plus their atol, the convs', dgrad's and the warped cotangent's
     with rtol + BF16_ROUND, wgrad's per element within BF16_ROUND of it
     plus WGRAD_REL of the largest; the warp's coordinate gradient is
-    float32 and keeps WARP_ATOL."""
+    float32 and keeps WARP_ATOL (`output_holds`)."""
     err = {}
     for name, args, kwargs in calls:
         mod, attr, plain, _, _ = KERNELS[name]
@@ -657,56 +761,23 @@ def check_kernels(calls):
                     f"{b.dtype}")
             e = (a - b).nan_to_num().abs().max().item()
             err[name] = max(err.get(name, 0.0), e)
-            kind = base_name(name)
-            if a.dtype == torch.bfloat16:
-                a, b = a.float(), b.float()
-                d = (a - b).abs()
-                rnd = BF16_ROUND * b.abs()
-                if kind.startswith("maxpool"):
-                    ok = torch.equal(a.isnan(), b.isnan()) and torch.equal(
-                        a.nan_to_num(), b.nan_to_num())
-                elif kind == "warp":
-                    ok = bool((d <= rnd + WARP_ATOL).all())
-                elif kind == "conv3x3_wgrad":
-                    ok = bool((d <= rnd + WGRAD_REL * b.abs().max()).all())
-                elif kind == "reproj":
-                    ok = bool((d <= rnd + REPROJ_ATOL).all())
-                elif kind == "reproj_bwd":
-                    ok = torch.allclose(a, b, rtol=REPROJ_BWD_TOL["rtol"]
-                                        + BF16_ROUND,
-                                        atol=REPROJ_BWD_TOL["atol"])
-                else:
-                    ok = torch.allclose(a, b, rtol=CONV_TOL["rtol"]
-                                        + BF16_ROUND, atol=CONV_TOL["atol"])
-            elif kind.startswith("maxpool"):
-                ok = torch.equal(a.isnan(), b.isnan()) and torch.equal(
-                    a.nan_to_num(), b.nan_to_num())
-            elif kind.startswith("warp"):
-                ok = e <= WARP_ATOL
-            elif kind == "conv3x3_wgrad":
-                ok = e <= WGRAD_REL * b.abs().max().item()
-            elif kind == "reproj":
-                ok = e <= REPROJ_ATOL
-            elif kind == "reproj_bwd":
-                ok = torch.allclose(a, b, **REPROJ_BWD_TOL)
-            else:
-                ok = torch.allclose(a, b, **CONV_TOL)
-            require(ok, f"{name} differs at {shapes}: max abs {e}")
+            require(output_holds(name, a, b),
+                    f"{name} differs at {shapes}: max abs {e}")
     return err
 
 
-def wgrad_repeats(calls):
-    """Two wgrad launches on the first layer1 call of a batch-12 step give
-    the same bits: the split partials are summed in a fixed order, with no
-    atomics."""
+def wgrad_repeats(calls, name="conv3x3_wgrad"):
+    """Two wgrad launches (`name`: the float32 or the bf16 entry) on the
+    first layer1 call of a batch-12 step give the same bits: the split
+    partials are summed in a fixed order, with no atomics."""
     layer1 = (TRAIN_BATCH, 64, HEIGHT // 4, WIDTH // 4)
-    args, kwargs = next((a, k) for n, a, k in calls if n == "conv3x3_wgrad"
+    args, kwargs = next((a, k) for n, a, k in calls if n == name
                         and tuple(a[1].shape) == layer1)
     first = conv3x3.conv3x3_wgrad(*args, **kwargs)
     same = torch.equal(first, conv3x3.conv3x3_wgrad(*args, **kwargs))
-    emit(check="wgrad_bit_equal_repeat", shape=list(layer1),
+    emit(check="wgrad_bit_equal_repeat", kernel=name, shape=list(layer1),
          act=kwargs.get("scale") is not None, bit_equal=same)
-    require(same, "two wgrad launches on one layer1 call differ")
+    require(same, f"two {name} launches on one layer1 call differ")
 
 
 def emit_checks(err, calls, edges, path):
@@ -2574,10 +2645,11 @@ def bf16_phase(dev, tmp):
     nets.zero_grad(set_to_none=True)
     require({c[0] for c in calls} == set(BF16_TRAIN_KERNELS),
             f"bf16 step recorded {sorted({c[0] for c in calls})}")
-    err = check_kernels(calls)
+    edges = bf16_edge_calls(dev)
+    err = check_kernels(calls + edges)
     errs.append(err)
-    emit_checks(err, calls, [], "train_bf16")
-    del calls
+    emit_checks(err, calls, edges, "train_bf16")
+    del calls, edges
 
     def grads64():
         cfg64 = cfg.replace(compute_dtype="float64")
@@ -2627,6 +2699,7 @@ def bf16_phase(dev, tmp):
         loss_fn(cfg, trainer.nets, big)[0].backward()
     trainer.nets.zero_grad(set_to_none=True)
     errs.append(check_step_calls(calls, dev, "train_bf16_batch12"))
+    wgrad_repeats(calls, "conv3x3_wgrad_bf16")
     ktimes = time_kernels(calls, "train_bf16_batch12")
     del calls
 
@@ -2846,10 +2919,14 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     emit(phase="build", seconds=build_s, library=lib.name)
     # what ptxas reported for the kernels of PTXAS_KERNELS
-    emit(phase="ptxas", kernels=[
-        dict(source=SRC + src, **r) for src, names in PTXAS_KERNELS.items()
-        for r in build.ptxas_report(src)
-        if any(n in r["kernel"] for n in names)])
+    ptxas = [dict(source=SRC + src, **r)
+             for src, names in PTXAS_KERNELS.items()
+             for r in build.ptxas_report(src)
+             if any(n in r["kernel"] for n in names)]
+    emit(phase="ptxas", kernels=ptxas)
+    spilled = [r["kernel"] for r in ptxas if "bf16_kernel" in r["kernel"]
+               and (r["spill_stores"] or r["spill_loads"])]
+    require(not spilled, f"ptxas spilled in the bf16 conv kernels {spilled}")
 
     errs, launches, times, seconds = [], {}, {}, {}
     clock = [time.perf_counter()]

@@ -20,7 +20,7 @@ an autograd Function over these kernels. What JAX leaves to XLA stays in
 tensor ops here: the ELU derivative from the saved output, the bias
 gradient and the backward of the act (dx, d scale, d shift).
 
-The conv kernels are implicit GEMMs on the tensor cores with 3xTF32
+The float32 conv kernels are implicit GEMMs on the tensor cores with 3xTF32
 products (each operand split into two TF32 parts, three products per
 multiply-add, fp32 accumulation: fp32-accurate; see the note at the top of
 the source). `conv_tiles` picks their tiles per call, and `tf32_round` is
@@ -29,8 +29,12 @@ their TF32 rounding in tensor ops, for the tests.
 bfloat16 (compute_dtype="bfloat16"): each kernel has a bf16 entry point,
 taken when the data tensor is bf16, as the Pallas kernel takes bf16
 operands (pallas_fold_conv.py:279-323, :511-575). Every tensor is bf16 but
-the reflect conv's bias, which stays float32; a bf16 value is exact in
-TF32, so one TF32 product per multiply-add, float32 sums. The forward
+the reflect conv's bias, which stays float32. The bf16 kernels keep the
+raw bf16 values in shared memory and take one mma.sync m16n8k16 bf16
+product (exact in fp32) per 16 channels of a tap (forward, dgrad) or 16
+pixels (wgrad), each summed from 0 and added to a float32 accumulator
+(see the note in the source; `bf16_conv_emulated` and
+`bf16_wgrad_emulated` in the tests write that order out). The forward
 adds the bias, applies ELU in float32 and rounds once; the ELU derivative
 is taken on the widened cotangent and output and rounded to bf16 before
 the dgrad and wgrad (:511-539); the dgrad, dx and dW come out bf16. The
@@ -53,17 +57,23 @@ from fusiondepth_torch.ops.padding import reflect_pad_hw
 
 
 # The kernels' tiles (csrc/conv3x3.cu): a forward block covers 8 x 32
-# output pixels and takes 8 input channels per K chunk; a wgrad block
-# sums pixel tiles of 2 x 32 for 16 mw output channels and WGRAD_CI[mw]
-# input channels. N_SMS: the H100's streaming multiprocessors.
+# output pixels and takes 8 input channels per K chunk (BF16_CHUNK = 16 in
+# bf16); a wgrad block sums pixel tiles of 2 x 32 for 16 mw output
+# channels and WGRAD_CI[mw] input channels (BF16_WGRAD_CI[mw] in bf16: a
+# warp there owns 16 output channels). N_SMS: the H100's streaming
+# multiprocessors.
 TILE_H, TILE_W, CHUNK = 8, 32, 8
+BF16_CHUNK = 16
 WGRAD_TILE_H = 2
 WGRAD_CI = {1: 32, 2: 32, 4: 16}
+BF16_WGRAD_CI = {1: 32, 2: 16, 4: 8}
 N_SMS = 132
 N_TILES = (8, 16, 32, 64)
 # blocks wanted in a grid: the forward holds <= 85 KB of shared memory a
-# block and the wgrad <= 101 KB, so two blocks of either fit on an SM
+# block and the wgrad <= 101 KB, so two blocks of either fit on an SM; the
+# bf16 wgrad (<= 45 KB, <= 128 registers) four
 GRID_BLOCKS = 2 * N_SMS
+BF16_WGRAD_BLOCKS = 4 * N_SMS
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -95,7 +105,8 @@ class ConvTiles:
     reflect pad), `wgrad_mw` the wgrad block's 16 mw output channels and
     `wgrad_splits` the runs of its 2 x 32 pixel tiles that the wgrad sums
     apart (the kernel gives each ceil(tiles / splits) tiles, the last run
-    fewer)."""
+    fewer). The bf16 kernels take the same N tiles and mw (their wgrad
+    block BF16_WGRAD_CI[mw] input channels)."""
     fwd_n: int
     dgrad_n: int
     wgrad_mw: int
@@ -103,16 +114,21 @@ class ConvTiles:
 
 
 def conv_tiles(B: int, H: int, W: int, Ci: int, Co: int,
-               reflect: bool = False) -> ConvTiles:
+               reflect: bool = False,
+               dtype: torch.dtype = torch.float32) -> ConvTiles:
     """Tiles and splits of the three conv kernels for one call (see
     ConvTiles). The wgrad block takes as many output channels as Co fills
     (16, 32 or 64); its pixel tiles are cut into contiguous runs so that
-    the grid holds about GRID_BLOCKS blocks, none of them empty."""
+    the grid holds about GRID_BLOCKS blocks (BF16_WGRAD_BLOCKS for a
+    bfloat16 call), none of them empty."""
     pad = 2 if reflect else 0
     mw = 4 if Co > 32 else (2 if Co > 16 else 1)
-    pairs = _cdiv(Co, 16 * mw) * _cdiv(Ci, WGRAD_CI[mw])
+    bf16 = dtype == torch.bfloat16
+    ci_tile = (BF16_WGRAD_CI if bf16 else WGRAD_CI)[mw]
+    pairs = _cdiv(Co, 16 * mw) * _cdiv(Ci, ci_tile)
     n_pix = B * pixel_tiles(H, W, WGRAD_TILE_H)
-    want = min(max(1, _cdiv(GRID_BLOCKS, pairs)), n_pix)
+    blocks = BF16_WGRAD_BLOCKS if bf16 else GRID_BLOCKS
+    want = min(max(1, _cdiv(blocks, pairs)), n_pix)
     return ConvTiles(fwd_n=n_tile(B, H, W, Co),
                      dgrad_n=n_tile(B, H + pad, W + pad, Ci), wgrad_mw=mw,
                      wgrad_splits=_cdiv(n_pix, _cdiv(n_pix, want)))
@@ -128,6 +144,18 @@ def tf32_round(t: torch.Tensor) -> torch.Tensor:
     t = t.to(torch.float32)
     bits = (t.view(torch.int32) + 0x1000) & -0x2000
     return torch.where(t.isnan(), t, bits.view(torch.float32))
+
+
+def packed_weights(Ci: int, Co: int, like: torch.Tensor):
+    """The bf16 forward and dgrad entries' packed-weight scratch, as the
+    tuple of their extra arguments (`wpack` in csrc/conv3x3.cu):
+    ceil(Ci / 16) chunks x 9 taps x Co rounded up to 64 x 16 bf16 values;
+    () for a float32 call. The caller keeps it until the launch is
+    queued."""
+    if like.dtype != torch.bfloat16:
+        return ()
+    n = _cdiv(Ci, BF16_CHUNK) * 9 * _cdiv(Co, 64) * 64 * BF16_CHUNK
+    return (torch.empty(n, device=like.device, dtype=torch.bfloat16),)
 
 
 def _concat(x0, x1):
@@ -239,11 +267,13 @@ def conv3x3_reflect_fwd(x0: torch.Tensor, weight: torch.Tensor,
     if bias.shape != (Co,):
         raise ValueError(f"{name}: bias {tuple(bias.shape)}, expected ({Co},)")
     y = torch.empty((B, Co, H, W), device=x0.device, dtype=dt)
+    wpack = packed_weights(C0 + C1, Co, x0)
     with on_card(x0) as stream:
         build.check(entry_point("fd_conv3x3_reflect_fwd", dt)(
             x0.data_ptr(), C0, None if x1 is None else x1.data_ptr(), C1,
             weight.data_ptr(), bias.data_ptr(), y.data_ptr(), B, H, W, Co,
-            int(elu), n_tile(B, H, W, Co), stream),
+            int(elu), n_tile(B, H, W, Co), stream,
+            *[t.data_ptr() for t in wpack]),
             "fd_conv3x3_reflect_fwd")
     LAUNCHES[launch_key(name, dt)] += 1
     return y
@@ -269,12 +299,14 @@ def conv3x3_zero_act_fwd(x: torch.Tensor, weight: torch.Tensor,
     if scale is not None and (scale.shape != (C,) or shift.shape != (C,)):
         raise ValueError(f"{name}: scale/shift must be ({C},)")
     y = torch.empty((B, Co, H, W), device=x.device, dtype=dt)
+    wpack = packed_weights(C, Co, x)
     with on_card(x) as stream:
         build.check(entry_point("fd_conv3x3_zero_act_fwd", dt)(
             x.data_ptr(), C, weight.data_ptr(),
             None if scale is None else scale.data_ptr(),
             None if shift is None else shift.data_ptr(),
-            y.data_ptr(), B, H, W, Co, n_tile(B, H, W, Co), stream),
+            y.data_ptr(), B, H, W, Co, n_tile(B, H, W, Co), stream,
+            *[t.data_ptr() for t in wpack]),
             "fd_conv3x3_zero_act_fwd")
     LAUNCHES[launch_key(name, dt)] += 1
     return y
@@ -308,13 +340,15 @@ def conv3x3_dgrad(g: torch.Tensor, weight: torch.Tensor, C0: int,
     dx1 = torch.empty((B, C1, H, W), **opts) if C1 else None
     dxp = torch.empty((B, C0 + C1, H + 2, W + 2), device=g.device,
                       dtype=torch.float32) if reflect else None
+    wpack = packed_weights(Co, C0 + C1, g)
     with on_card(g) as stream:
         build.check(entry_point("fd_conv3x3_dgrad", dt)(
             g.data_ptr(), Co, wt.data_ptr(),
             None if dxp is None else dxp.data_ptr(), dx0.data_ptr(), C0,
             None if dx1 is None else dx1.data_ptr(), C1, B, H, W,
-            int(reflect), conv_tiles(B, H, W, C0 + C1, Co, reflect).dgrad_n,
-            stream), "fd_conv3x3_dgrad")
+            int(reflect),
+            conv_tiles(B, H, W, C0 + C1, Co, reflect, dt).dgrad_n, stream,
+            *[t.data_ptr() for t in wpack]), "fd_conv3x3_dgrad")
     LAUNCHES[launch_key(name, dt)] += 1
     return dx0, dx1
 
@@ -350,7 +384,7 @@ def conv3x3_wgrad(g: torch.Tensor, x0: torch.Tensor,
     if reflect and (H < 2 or W < 2):
         raise ValueError(f"{name}: reflect pad needs H, W >= 2")
     Co, Ci = g.shape[1], C0 + C1
-    tiles = conv_tiles(B, H, W, Ci, Co, reflect)
+    tiles = conv_tiles(B, H, W, Ci, Co, reflect, dt)
     part = torch.empty((tiles.wgrad_splits, Co, Ci, 9), device=g.device,
                        dtype=torch.float32)
     dw = torch.empty((Co, Ci, 3, 3), device=g.device, dtype=dt)

@@ -1,6 +1,7 @@
 """Time the kernels of several source trees on one card, in turns.
 
-    python3 scripts/ab_kernels.py [--sass OUT_DIR] OTHER_CSRC [OTHER_CSRC ...]
+    python3 scripts/ab_kernels.py [--sass OUT_DIR] [--kernels K1,K2,...]
+                                  OTHER_CSRC [OTHER_CSRC ...]
 
 Builds `fusiondepth_torch/kernels/csrc` ("this") and each OTHER_CSRC (a
 directory of `.cu` files with the same C entry points, at least
@@ -10,9 +11,15 @@ commit's, unpacked with `git archive`, or a variant of this tree's) into
 libraries of their own, every `nvcc` started together, and prints each
 tree's registers and SASS loop lengths of the kernels of LOOP_KERNELS
 (with --sass, their whole SASS as well, one file per tree and source
-under OUT_DIR). Then, on inputs made from a seed, it holds each tree's
-kernels against their plain versions and times them with CUDA events,
-the trees in the order others, this, this, others reversed: the pool
+under OUT_DIR), and whether each float32 conv kernel's SASS is the same
+as this tree's (`sass_equal`, names and addresses aside). Then, on inputs
+made from a seed, it holds each tree's kernels against their plain
+versions and times them with CUDA events, the trees in the order others,
+this, this, others reversed: the conv calls of a batch-12 train step at
+640x192 in float32 and in bfloat16 (reflect, zero-pad with and without
+the act, dgrad, wgrad: every call the step makes, recorded from a step of
+chip_smoke.py's seeded weights; one line per kernel and dtype, its calls
+summed, with cuDNN's time on the calls a cuDNN call covers); the pool
 backward's four calls and the reprojection loss's forward (the warp and
 the identity call) and backward calls of a batch-12 train step at
 640x192; the warp forward and backward of a batch-12 train step and of a
@@ -25,10 +32,12 @@ traffic); and the KNN on frame-like clouds of N = 40960
 frame). The pool must agree bit for bit, the reprojection map within
 chip_smoke's REPROJ_ATOL and its cotangent within REPROJ_BWD_TOL, the
 warp and its coordinate cotangents within WARP_ATOL, the KNN index for
-index. Prints one JSON line
-per kernel and call shape (each tree's two runs in `ms_runs`, a warp
-call's displacements in `flow_px`), with the card's name and power
-limit. Needs one CUDA card and nvcc.
+index, the convs at chip_smoke's bounds (`chip_smoke.output_holds`).
+Prints one JSON line per kernel and call shape (each tree's two runs in
+`ms_runs`, a warp call's displacements in `flow_px`), with the card's name
+and power limit. --kernels keeps the calls of those kernels only (names
+as in kernels.F32_KERNELS). The other trees run with this tree's tile
+choices (kernels/conv3x3.py::conv_tiles). Needs one CUDA card and nvcc.
 """
 
 from __future__ import annotations
@@ -47,7 +56,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from fusiondepth_torch.kernels import (  # noqa: E402
-    build, knn, pool, reproj, warp)
+    build, conv3x3, knn, pool, reproj, warp)
 
 REPROJ_ATOL = 1e-5
 WARP_ATOL = 1e-5
@@ -59,11 +68,27 @@ REPROJ_BWD_TOL = dict(atol=1e-4, rtol=1e-4)
 # train step launch them; "bwd_kernel" takes the warp backward too)
 LOOP_KERNELS = ("bwd_kernel", "reproj_fwd_kernelILi3E",
                 "knn_partial_kernelILi10E", "knn_merge_kernelILi10E",
-                "warp_fwd_kernel")
+                "warp_fwd_kernel", "conv3x3_fwd_kernel", "conv3x3_wgrad_kernel",
+                "conv3x3_fwd_bf16_kernel", "conv3x3_wgrad_bf16_kernel")
+# the float32 conv instantiations whose SASS every tree is held to
+F32_CONV = re.compile(r"conv3x3_(?:fwd|wgrad)_kernelIf\w*")
+CONV_NAMES = ("conv3x3_reflect", "conv3x3_zero_act", "conv3x3_dgrad",
+              "conv3x3_wgrad")
+# the image size of the train step whose conv calls are timed
+STEP_HW = (192, 640)
 
 
-def build_tree(csrc: Path, out: Path, sass_dir=None) -> ctypes.CDLL:
-    """Compile every .cu of `csrc` into `out`/lib.so and bind it."""
+def kernel_key(entry: str) -> str:
+    """A mangled kernel name from its kernel's name on (the namespace's
+    tag dropped): unique within a tree, equal across trees."""
+    at = min((entry.find(k) for k in LOOP_KERNELS if k in entry),
+             default=-1)
+    return entry[at:] if at >= 0 else entry[-40:]
+
+
+def build_tree(csrc: Path, out: Path, sass_dir=None, tag="this"):
+    """Compile every .cu of `csrc` into `out`/lib.so and bind it; returns
+    (library, {float32 conv instantiation: SASS body})."""
     nvcc = build.find_nvcc()
     out.mkdir(parents=True, exist_ok=True)
     cu = sorted(csrc.glob("*.cu"))
@@ -79,15 +104,17 @@ def build_tree(csrc: Path, out: Path, sass_dir=None) -> ctypes.CDLL:
             entry = m.group(1) if m else entry
             if not (entry and any(k in entry for k in LOOP_KERNELS)):
                 continue
-            r = regs.setdefault(entry[-40:], {})
+            r = regs.setdefault(kernel_key(entry), {})
             m = re.search(r"Used (\d+) registers", line)
             if m:
                 r["registers"] = int(m.group(1))
             m = re.search(r"(\d+) bytes spill stores", line)
             if m:
                 r["spill_stores"] = int(m.group(1))
+    bodies = {}
     print(json.dumps(dict(tree=str(csrc), registers=regs,
-                          loops=sass_loops(nvcc, objs, csrc, sass_dir))),
+                          loops=sass_loops(nvcc, objs, tag, sass_dir,
+                                           bodies))),
           flush=True)
     lib = out / "lib.so"
     build._run_all([("link", [nvcc, *build.ARCH_FLAGS, "-shared", "-o",
@@ -100,13 +127,28 @@ def build_tree(csrc: Path, out: Path, sass_dir=None) -> ctypes.CDLL:
             fn.restype = ctypes.c_int
     so.fd_error_string.argtypes = (ctypes.c_int,)
     so.fd_error_string.restype = ctypes.c_char_p
-    return so
+    return so, bodies
 
 
-def sass_loops(nvcc, objs, csrc, sass_dir=None):
+def sass_body(func: str) -> str:
+    """A function's SASS without its name line, addresses and encodings,
+    and with anonymous-namespace tags blanked: what two builds of the same
+    code share."""
+    lines = []
+    for line in func.split("\n")[1:]:
+        line = re.sub(r"/\*[0-9a-f]{4,}\*/", "", line)
+        line = re.sub(r"/\* 0x[0-9a-f]+ \*/", "", line)
+        line = re.sub(r"_GLOBAL__N__\w+?_", "_GLOBAL__N_", line).strip()
+        if line:
+            lines.append(line)
+    return "\n".join(lines)
+
+
+def sass_loops(nvcc, objs, tag, sass_dir=None, bodies=None):
     """{kernel of LOOP_KERNELS: [instructions between each backward branch
     and its target]} from cuobjdump's SASS of the objects: the length of
-    each loop's body as the card runs it."""
+    each loop's body as the card runs it. With `bodies` (a dict), also
+    {float32 conv instantiation: sass_body} into it."""
     cuobjdump = Path(nvcc).with_name("cuobjdump")
     loops = {}
     for obj in objs:
@@ -119,15 +161,17 @@ def sass_loops(nvcc, objs, csrc, sass_dir=None):
             if not any(k in name for k in LOOP_KERNELS):
                 continue
             kept.append(func)
+            conv = F32_CONV.search(name)
+            if bodies is not None and conv:
+                bodies[conv.group(0)] = sass_body(func)
             spans = []
             for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+[^;]*BRA[^;]*"
                                  r"0x([0-9a-f]+)", func):
                 at, to = int(m.group(1), 16), int(m.group(2), 16)
                 if to < at:
                     spans.append((at - to) // 16 + 1)
-            loops[name[-40:]] = spans
+            loops[kernel_key(name)] = spans
         if sass_dir and kept:
-            tag = "_".join(csrc.parts[-2:])
             Path(sass_dir, f"{tag}_{obj.stem}.sass").write_text(
                 "\n\nFunction : ".join(kept))
     return loops
@@ -209,6 +253,7 @@ def step_warp_calls(dev):
     from fusiondepth_torch.config import Config
     from fusiondepth_torch.data.loader import collate
     from fusiondepth_torch.data.synthetic import SyntheticDataset
+    from fusiondepth_torch.kernels import all_plain
     from fusiondepth_torch.training.train_state import loss_fn
     from fusiondepth_torch.training.trainer import Trainer
 
@@ -222,10 +267,129 @@ def step_warp_calls(dev):
         trainer.run_epoch()
         frames = trainer.put_batch(collate([data[i] for i in range(batch)]))
         recorded = []
-        with chip_smoke.plain_kernels(record=recorded):
+        with all_plain(record=recorded):
             loss_fn(cfg, trainer.nets, frames)[0].backward()
     return [(name, args) for name, args, _ in recorded
             if name.startswith("warp")]
+
+
+def step_conv_calls(dev, dtype):
+    """(kernel, args, kwargs) of every conv call of a batch-12 train step at
+    640x192 in `dtype` ("float32" or "bfloat16"), recorded through the
+    plain versions: chip_smoke.py's seeded weights and synthetic frames.
+    A bf16 call's kernel name ends in "_bf16"."""
+    import chip_smoke
+    from fusiondepth_torch.config import Config
+    from fusiondepth_torch.data.loader import collate
+    from fusiondepth_torch.data.synthetic import SyntheticDataset
+    from fusiondepth_torch.kernels import all_plain
+    from fusiondepth_torch.training.infer_driver import device_batch
+    from fusiondepth_torch.training.train_state import loss_fn
+    from fusiondepth_torch.training.trainer import TRAIN_KEYS
+
+    batch = chip_smoke.TRAIN_BATCH
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = Config(num_layers=18, height=STEP_HW[0], width=STEP_HW[1],
+                     batch_size=batch, weights_init="scratch", log_dir=tmp,
+                     compute_dtype=dtype)
+        data = SyntheticDataset(cfg, length=batch, seed=2)
+        nets = chip_smoke.seeded_weights(cfg).to(dev)
+        frames = device_batch(collate([data[i] for i in range(batch)]), dev,
+                              TRAIN_KEYS)
+        recorded = []
+        with all_plain(record=recorded):
+            loss_fn(cfg, nets, frames)[0].backward()
+    return [c for c in recorded
+            if chip_smoke.base_name(c[0]) in CONV_NAMES]
+
+
+def graph_ms(fn, iters=10):
+    """Milliseconds per call of fn replayed from a CUDA graph: the device's
+    time without the host's launch overhead (None if fn cannot be
+    captured)."""
+    try:
+        fn()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        return cuda_ms(graph.replay, iters=iters, warmup=2)
+    except RuntimeError:
+        return None
+
+
+def time_step_convs(dev, libs, order, keep, card):
+    """The conv calls of a b12 step in float32 and bf16 (step_conv_calls)
+    through each tree, in turns: per kernel and dtype one line, summed over
+    the step's calls, and one `conv_call` line per call (its shapes, each
+    tree's ms and graph-replayed device ms, cuDNN's where it covers the
+    call)."""
+    import chip_smoke
+
+    for dtype in ("float32", "bfloat16"):
+        calls = [c for c in step_conv_calls(dev, dtype)
+                 if chip_smoke.base_name(c[0]) in keep]
+        rows = {}
+        for name, args, kwargs in calls:
+            mod, attr, plain, _, _ = chip_smoke.KERNELS[name]
+            fn = getattr(mod, attr)
+            want = chip_smoke._tensors(plain(*args, **kwargs))
+            r = rows.setdefault(name, dict(
+                calls=0, ms={n: [0.0, 0.0] for n in libs}, plain_ms=0.0,
+                bound_ms=0.0, library_ms=0.0, library_calls=0,
+                library_of_ms={n: 0.0 for n in libs},
+                checks={n: dict(ok=True, max_abs_err=0.0) for n in libs}))
+            r["calls"] += 1
+            lib_call = chip_smoke.library_call(name, args, kwargs)
+            runs = {n: 0 for n in libs}
+            one = {n: 0.0 for n in libs}  # this call's ms, mean of 2 runs
+            for n in order:
+                build.load = lambda lib=libs[n]: lib
+                got = chip_smoke._tensors(fn(*args, **kwargs))
+                torch.cuda.synchronize()
+                c = r["checks"][n]
+                for a, b in zip(got, want):
+                    c["max_abs_err"] = max(c["max_abs_err"], (
+                        a.float() - b.float()).abs().max().item())
+                    c["ok"] = c["ok"] and bool(
+                        chip_smoke.output_holds(name, a, b))
+                k = cuda_ms(lambda: fn(*args, **kwargs), iters=10, warmup=2)
+                r["ms"][n][runs[n]] += k
+                runs[n] += 1
+                one[n] += k / 2
+                if lib_call is not None:
+                    r["library_of_ms"][n] += k / 2
+            device = {}
+            for n in order[:len(libs)]:
+                build.load = lambda lib=libs[n]: lib
+                device[n] = graph_ms(lambda: fn(*args, **kwargs))
+            r["plain_ms"] += cuda_ms(lambda: plain(*args, **kwargs), iters=5,
+                                     warmup=1)
+            r["bound_ms"] += max(
+                chip_smoke.call_bytes(args, kwargs, want)
+                / chip_smoke.PEAK_BYTES_S * 1e3,
+                chip_smoke.ops_ms(name, args, kwargs))
+            lib_ms = lib_dev = None
+            if lib_call is not None:
+                lib_ms = cuda_ms(lib_call, iters=10, warmup=2)
+                lib_dev = graph_ms(lib_call)
+                r["library_ms"] += lib_ms
+                r["library_calls"] += 1
+            print(json.dumps(dict(
+                conv_call=name, shapes=[list(a.shape) for a in args
+                                        if torch.is_tensor(a)],
+                ms=one, device_ms=device, library_ms=lib_ms,
+                library_device_ms=lib_dev)), flush=True)
+        del calls
+        for name, r in rows.items():
+            print(json.dumps(dict(
+                kernel=name, calls=r["calls"], per="all calls of one b12 "
+                "train step at 640x192",
+                ms={n: sum(v) / 2 for n, v in r["ms"].items()},
+                ms_runs=r["ms"], plain_ms=r["plain_ms"],
+                bound_ms=r["bound_ms"], library_ms=r["library_ms"] or None,
+                library_calls=r["library_calls"],
+                library_of_ms=r["library_of_ms"] if r["library_calls"]
+                else None, checks=r["checks"], card=card)), flush=True)
 
 
 def flow_px(ix, iy):
@@ -241,23 +405,25 @@ def flow_px(ix, iy):
     return out
 
 
-def calls(dev):
-    """(kernel, wrapper, plain version, args) of the calls held and timed:
-    the pool backward's four calls, the reprojection loss's forward (the
-    8 warps and the identity maps) and backward calls of a batch-12 train
-    step at 640x192 (the pool input ReLU-like, so that all-zero windows
-    tie), the warp forward and backward of a b12 train step and a b4
-    refine step (`warp_coords`; at b12 also far displacements), and the
-    KNN at N = 40960 and N = 77824."""
+def calls(dev, keep):
+    """(kernel, wrapper, plain version, args) of the calls held and timed,
+    of the kernels in `keep`: the pool backward's four calls, the
+    reprojection loss's forward (the 8 warps and the identity maps) and
+    backward calls of a batch-12 train step at 640x192 (the pool input
+    ReLU-like, so that all-zero windows tie), the warp forward and backward
+    of a b12 train step and a b4 refine step (`warp_coords`; at b12 also
+    far displacements), and the KNN at N = 40960 and N = 77824."""
     g = torch.Generator(device=dev).manual_seed(0)
     out = []
-    for B in (12, 12, 24, 24):
+    for B in (12, 12, 24, 24) if "maxpool3x3s2_bwd" in keep else ():
         x = torch.relu(torch.randn((B, 64, 96, 320), generator=g,
                                    device=dev) - 0.3)
         y = pool.maxpool3x3s2_plain(x)
         out.append(("maxpool3x3s2_bwd", pool.maxpool3x3s2_bwd,
                     pool.maxpool3x3s2_bwd_plain,
                     [x, y, torch.randn(y.shape, generator=g, device=dev)]))
+    if not keep & {"reproj", "reproj_bwd", "warp", "warp_bwd", "knn"}:
+        return out
     warped = torch.rand((2, 4, 12, 3, 192, 640), generator=g, device=dev)
     target = torch.rand((12, 3, 192, 640), generator=g, device=dev)
     warped[1, 3, 11] = target[11]
@@ -276,12 +442,13 @@ def calls(dev):
         warps += [("warp", [ix, iy, src]), ("warp_bwd", [ix, iy, src, gw])]
     kernels = {"warp": (warp.warp_fwd, warp.warp_plain),
                "warp_bwd": (warp.warp_bwd, warp.warp_bwd_plain)}
-    out += [(name, *kernels[name], args)
-            for name, args in warps + step_warp_calls(dev)]
+    if keep & {"warp", "warp_bwd"}:
+        out += [(name, *kernels[name], args)
+                for name, args in warps + step_warp_calls(dev)]
     for n_pl, cap_pl in ((67400, 32768), (67400, 69632)):
         pts = torch.from_numpy(frame_cloud(n_pl, cap_pl, 8192)).to(dev)
         out.append(("knn", knn.knn, knn.knn_plain, [pts, 10]))
-    return out
+    return [c for c in out if c[0] in keep]
 
 
 def holds(name, got, want):
@@ -305,9 +472,19 @@ def main() -> int:
     here = Path(__file__).resolve().parents[1]
     args = sys.argv[1:]
     sass_dir = None
-    if args[:1] == ["--sass"]:
-        sass_dir = Path(args[1])
+    keep = None
+    while args[:1] in (["--sass"], ["--kernels"]):
+        if args[0] == "--sass":
+            sass_dir = Path(args[1])
+        else:
+            keep = set(args[1].split(","))
         args = args[2:]
+    from fusiondepth_torch.kernels import F32_KERNELS
+    keep = set(F32_KERNELS) if keep is None else keep
+    if not keep <= set(F32_KERNELS):
+        print(f"ab_kernels: --kernels takes names of {F32_KERNELS}",
+              file=sys.stderr)
+        return 2
     trees = {"this": here / "fusiondepth_torch/kernels/csrc"}
     trees.update({a: Path(a).resolve() for a in args})
     missing = [str(src / f) for src in trees.values() for f in REQUIRED
@@ -323,14 +500,24 @@ def main() -> int:
     if sass_dir:
         sass_dir.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory() as tmp:
-        libs = {name: build_tree(src, Path(tmp) / str(i), sass_dir)
-                for i, (name, src) in enumerate(trees.items())}
+        built = {name: build_tree(src, Path(tmp) / str(i), sass_dir,
+                                  "this" if name == "this" else f"tree{i}")
+                 for i, (name, src) in enumerate(trees.items())}
+    libs = {name: lib for name, (lib, _) in built.items()}
+    bodies = {name: b for name, (_, b) in built.items()}
+    print(json.dumps(dict(sass_equal={
+        n: {k: bodies[n].get(k) == v for k, v in bodies["this"].items()}
+        for n in bodies if n != "this"})), flush=True)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     others = [n for n in libs if n != "this"]
     order = others + ["this", "this"] + others[::-1]
-    for name, wrapper, plain, args in calls(dev):
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if keep & set(CONV_NAMES):
+        time_step_convs(dev, libs, order, keep, card)
+    for name, wrapper, plain, args in calls(dev, keep):
         want = plain(*args)
         ms = {n: [] for n in libs}
         err = {}

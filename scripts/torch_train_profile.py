@@ -46,12 +46,13 @@ from fusiondepth_torch.training.trainer import Trainer  # noqa: E402
 
 def port_kernel_names() -> set:
     """The names of the `__global__` kernels of the port's CUDA sources
-    (`__launch_bounds__(...)` between `void` and the name skipped)."""
+    (`__launch_bounds__(...)` between `void` and the name skipped, also
+    where its arguments span lines)."""
     found = set()
     for src in build.CSRC.glob("*.cu"):
         found.update(re.findall(
             r"__global__\s+void\s+(?:__launch_bounds__\(.*?\)\s*)?"
-            r"(\w+)\s*\(", src.read_text()))
+            r"(\w+)\s*\(", src.read_text(), re.DOTALL))
     return found
 
 

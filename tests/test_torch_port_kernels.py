@@ -42,6 +42,7 @@ from fusiondepth_tpu.ops.warp import warp_planes as jax_warp_planes
 from fusiondepth_tpu.ops.warp import warp_planes_xla
 from fusiondepth_torch.kernels import LAUNCHES, build, conv3x3, knn, pool, \
     reproj, warp
+from fusiondepth_torch.ops.padding import reflect_pad_hw
 from fusiondepth_torch.ops.pooling import max_pool_3x3s2
 from fusiondepth_torch.ops.warp import warp_planes, warp_planes_plain
 
@@ -573,6 +574,149 @@ def test_3xtf32_conv_is_fp32_accurate_and_1xtf32_is_not():
         assert bool(err <= 1e-3 * want.abs().max()) is ok
 
 
+U = 2.0 ** -8  # bf16's unit roundoff (tests/test_torch_port_bf16.py)
+
+
+def bf16_conv_emulated(xp, w):
+    """The bf16 forward kernel's sums (the dgrad's too) in tensor ops, as
+    float32: xp (B, Ci, H + 2, W + 2) the padded bf16 input, w (Co, Ci, 3,
+    3) bf16. For each chunk of 16 input channels in order and each tap in
+    order, the chunk's 16 products summed from 0 (exactly, in float64,
+    then rounded to float32: a bf16 x bf16 product is exact in float32 and
+    the tensor core's sum of 16 lies within a rounding of the exact one)
+    and added to the float32 accumulator."""
+    B, Ci, Hp, Wp = xp.shape
+    H, W = Hp - 2, Wp - 2
+    acc = torch.zeros((B, w.shape[0], H, W), dtype=torch.float32)
+    for k0 in range(0, Ci, conv3x3.BF16_CHUNK):
+        k1 = k0 + conv3x3.BF16_CHUNK
+        for tap in range(9):
+            ky, kx = divmod(tap, 3)
+            d = torch.einsum("bchw,oc->bohw",
+                             xp[:, k0:k1, ky:ky + H, kx:kx + W].double(),
+                             w[:, k0:k1, ky, kx].double())
+            acc = acc + d.float()
+    return acc
+
+
+def bf16_wgrad_emulated(g, xp, splits):
+    """The bf16 wgrad kernel's sums in tensor ops: dW (Co, Ci, 3, 3),
+    float32, from the cotangent g (B, Co, H, W) and the padded input xp
+    (B, Ci, H + 2, W + 2), both bf16. The pixel tiles of 2 x 32 (images,
+    then tile rows, then tile columns) are cut into `splits` runs of
+    ceil(tiles / splits); a run takes its tiles in order, 16 pixels of a
+    row at a time, sums each group's products from 0 (exactly, then
+    rounded) and adds them to its float32 partial; the partials are added
+    in order (sum_splits_kernel). Pixels past the map have g = 0."""
+    B, Co, H, W = g.shape
+    Ci = xp.shape[1]
+    gp = F.pad(g.double(), (0, 32, 0, 2))
+    xq = F.pad(xp.double(), (0, 32, 0, 2))
+    tiles = [(b, r, c) for b in range(B) for r in range(0, H, 2)
+             for c in range(0, W, 32)]
+    per = -(-len(tiles) // splits)
+    dw = torch.zeros((Co, Ci, 3, 3))
+    for first in range(0, len(tiles), per):
+        part = torch.zeros((Co, Ci, 3, 3))
+        for b, r0, c0 in tiles[first:first + per]:
+            for r in (r0, r0 + 1):
+                for q in (c0, c0 + 16):
+                    taps = torch.stack([xq[b, :, r + ky, q + kx:q + kx + 16]
+                                        for ky in range(3)
+                                        for kx in range(3)], -1)
+                    d = torch.einsum("op,cpt->oct", gp[b, :, r, q:q + 16],
+                                     taps)
+                    part = part + d.reshape(Co, Ci, 3, 3).float()
+        dw = dw + part
+    return dw
+
+
+def _bf16_bound(got, want, summands):
+    """tests/test_torch_port_bf16.py's conv bound: |got - want| <= 2 U
+    |want| + 2 U S, S the summed magnitudes of the products an output
+    sums."""
+    err = (got.double() - want.double()).abs()
+    return bool((err <= 2 * U * want.double().abs() + 2 * U * summands).all())
+
+
+def test_bf16_kernel_arithmetic_holds_to_plain_and_pallas():
+    """The bf16 conv kernels' arithmetic (bf16_conv_emulated,
+    bf16_wgrad_emulated) on the inputs of two convs, held to the plain
+    bf16 versions and to the Pallas kernels in interpret mode at
+    tests/test_torch_port_bf16.py's bound, and to the plain versions at
+    chip_smoke.py's bounds for a bf16 kernel (CONV_TOL plus one bf16
+    spacing; WGRAD_REL of the largest plus one spacing). The forward: the
+    decoder's reflect ConvBlock on a skip concat of 24 + 17 channels (K =
+    41: two chunks of 16 and a tail of 9, a channel pair split by the
+    concat), bias and ELU. The wgrad: the encoder's zero-pad conv with its
+    BN + ReLU prologue (a positive shift) over 16 pixel tiles (8 x 40, the
+    second tile column ragged) cut into 3 runs."""
+    bf = torch.bfloat16
+    rng = np.random.RandomState(12)
+    B, H, W, C0, C1, Co, Fr = 2, 8, 32, 24, 17, 12, 4
+    x0 = rng.standard_normal((B, H, W, C0)).astype(np.float32)
+    x1 = rng.standard_normal((B, H, W, C1)).astype(np.float32)
+    w = (rng.standard_normal((3, 3, C0 + C1, Co)) * 0.2).astype(np.float32)
+    bias = (rng.standard_normal(Co) * 0.1).astype(np.float32)
+    t0, t1, tw = _nchw(x0).to(bf), _nchw(x1).to(bf), _oihw(w).to(bf)
+    tb = torch.from_numpy(bias)
+    j0, j1 = jnp.asarray(_nhwc(t0.float())), jnp.asarray(_nhwc(t1.float()))
+    jw = jnp.asarray(tw.float().numpy().transpose(2, 3, 1, 0))
+    pallas = unfold(fold_conv3x3_pallas(
+        (fold(j0.astype(jnp.bfloat16), Fr), fold(j1.astype(jnp.bfloat16), Fr)),
+        (jw[:, :, :C0].astype(jnp.bfloat16), jw[:, :, C0:].astype(jnp.bfloat16)),
+        jnp.asarray(bias), Fr, (C0, C1), True, True), Co)
+    pallas = _nchw(np.asarray(pallas.astype(jnp.float32)))
+    xp = reflect_pad_hw(torch.cat([t0, t1], 1).float(), 1)
+    got = F.elu(bf16_conv_emulated(xp, tw.float()) + tb[:, None, None]).to(bf)
+    plain = conv3x3.conv3x3_reflect_plain(t0, tw, tb, t1, True)
+    summands = F.conv2d(xp.abs().double(), tw.abs().double(),
+                        tb.abs().double())
+    for want in (plain, pallas):
+        assert _bf16_bound(got, want, summands)
+    assert torch.allclose(got.float(), plain.float(), rtol=1e-4 + 2 * U,
+                          atol=1e-4)
+
+    rng = np.random.RandomState(13)
+    B, H, W, C, Fr = 2, 8, 40, 16, 2
+    x = rng.standard_normal((B, H, W, C)).astype(np.float32)
+    w = (rng.standard_normal((3, 3, C, C)) * 0.2).astype(np.float32)
+    sc = (np.abs(rng.standard_normal(C)) * 0.5 + 0.5).astype(np.float32)
+    sh = (np.abs(rng.standard_normal(C)) * 0.3 + 0.2).astype(np.float32)
+    gy = rng.standard_normal((B, H, W, C)).astype(np.float32)
+    tx, tw, tg = _nchw(x).to(bf), _oihw(w).to(bf), _nchw(gy).to(bf)
+    ts, tt = torch.from_numpy(sc).to(bf), torch.from_numpy(sh).to(bf)
+
+    def f(a, k, s_, t_):
+        return fold_conv3x3_zero_pallas(fold(a, Fr), k, jnp.tile(s_, Fr),
+                                        jnp.tile(t_, Fr), Fr, C, True, True)
+
+    jx, jk, js, jt = (jnp.asarray(v).astype(jnp.bfloat16) for v in (
+        _nhwc(tx.float()), tw.float().numpy().transpose(2, 3, 1, 0),
+        ts.float().numpy(), tt.float().numpy()))
+    _, vjp = jax.vjp(jax.jit(f), jx, jk, js, jt)
+    dw_pallas = vjp(fold(jnp.asarray(_nhwc(tg.float())).astype(jnp.bfloat16),
+                         Fr))[1]
+    dw_pallas = torch.from_numpy(np.asarray(dw_pallas.astype(jnp.float32))
+                                 .transpose(3, 2, 0, 1).copy())
+    splits = conv3x3.conv_tiles(B, H, W, C, C, False, bf).wgrad_splits
+    assert conv3x3.pixel_tiles(H, W, conv3x3.WGRAD_TILE_H) * B == 16
+    xa = F.pad(torch.relu(tx * ts[:, None, None] + tt[:, None, None]).float(),
+               (1, 1, 1, 1))
+    got = bf16_wgrad_emulated(tg.float(), xa, 3).to(bf)
+    plain = conv3x3.conv3x3_wgrad_plain(tg, tx, None, False, ts, tt)
+    summands = torch.nn.grad.conv2d_weight(
+        xa.abs().double(), (C, C, 3, 3), tg.float().abs().double())
+    for want in (plain, dw_pallas):
+        assert _bf16_bound(got, want, summands)
+    d = (got.float() - plain.float()).abs()
+    assert bool((d <= 2 * U * plain.float().abs()
+                 + 1e-3 * plain.float().abs().max()).all())
+    assert splits >= 1  # the kernel's own choice runs here too
+    got_own = bf16_wgrad_emulated(tg.float(), xa, splits).to(bf)
+    assert _bf16_bound(got_own, plain, summands)
+
+
 def _path_convs():
     """(B, H, W, Ci, Co, reflect) of every 3x3 conv kernel call of the
     batch-12 train step and the batch-4 refine step at 640x192 and of the
@@ -623,12 +767,69 @@ def _path_convs():
     return sorted(calls)
 
 
+def _conv_tiles_before_bf16(B, H, W, Ci, Co, reflect):
+    """conv_tiles as it was before the bf16 kernels had tiles of their own
+    (the float32 kernels' choices, pinned)."""
+    def n_tile(B, H, W, Co):
+        n = next((t for t in (8, 16, 32, 64) if t >= Co), 64)
+        while n > 8 and B * (-(-H // 8)) * (-(-W // 32)) * (-(-Co // n)) \
+                < 264:
+            n //= 2
+        return n
+
+    pad = 2 if reflect else 0
+    mw = 4 if Co > 32 else (2 if Co > 16 else 1)
+    pairs = -(-Co // (16 * mw)) * -(-Ci // {1: 32, 2: 32, 4: 16}[mw])
+    n_pix = B * (-(-H // 2)) * (-(-W // 32))
+    want = min(max(1, -(-264 // pairs)), n_pix)
+    return (n_tile(B, H, W, Co), n_tile(B, H + pad, W + pad, Ci), mw,
+            -(-n_pix // -(-n_pix // want)))
+
+
+def _smem_bytes(kind, bf16, n):
+    """Dynamic shared memory a conv block asks for (csrc/conv3x3.cu's
+    FwdTile, WgTile, BfFwdTile, BfWgTile), from the source's constants;
+    n is the forward's N tile or the wgrad's mw."""
+    if kind == "fwd":
+        if bf16:
+            ci, plane, wrow = _cu_constants("conv3x3.cu", "BF_CI", "BF_PLANE",
+                                            "BF_WROW")
+            return 2 * (ci // 2 * plane + 9 * n * wrow) * 4
+        ci, cs, ws = _cu_constants("conv3x3.cu", "CI_T", "FWD_CS", "FWD_WS")
+        return 2 * (2 * ci * cs + n * ws) * 4
+    if bf16:
+        gstr, plane, stages = _cu_constants("conv3x3.cu", "BG_STR",
+                                            "BX_PLANE", "WG_STAGES")
+        return stages * (16 * n * gstr
+                         + conv3x3.BF16_WGRAD_CI[n] * plane) * 2
+    cs, th, tw = _cu_constants("conv3x3.cu", "WG_CS", "WG_TH", "TW")
+    gs = th * tw + 4  # WG_GS, a cotangent row
+    return 2 * (16 * n * gs + 2 * conv3x3.WGRAD_CI[n] * cs) * 4
+
+
 def test_conv_tiles_fit_every_conv_of_the_main_paths():
     """Every tile and split that conv_tiles picks for the convs of the b12
     train step, the b4 refine step and the b4 completion step is one the
-    kernels take, every wgrad run holds at least one pixel tile, and every
-    wgrad grid fills at least one wave of the H100's 132 SMs."""
+    kernels take, every grid covers its output, every wgrad run holds at
+    least one pixel tile, every wgrad grid fills at least one wave of the
+    H100's 132 SMs, and the shared memory a block asks for fits an SM
+    twice. The float32 choices are the ones the kernels had before the
+    bf16 tiles (`_conv_tiles_before_bf16`)."""
+    _check_conv_tiles(torch.float32)
+
+
+def test_bf16_conv_tiles_fit_every_conv_of_the_main_paths():
+    """As test_conv_tiles_fit_every_conv_of_the_main_paths for the bf16
+    kernels' tiles: the forward's shared memory fits an SM twice at N <=
+    16 and once (one 16-warp block) above, the wgrad's four times."""
+    _check_conv_tiles(torch.bfloat16)
+
+
+def _check_conv_tiles(dtype):
     calls = _path_convs()
+    bf16 = dtype == torch.bfloat16
+    ci_tile = (conv3x3.BF16_WGRAD_CI if bf16 else conv3x3.WGRAD_CI)
+    sm_bytes, block_extra = 233472, 1024  # an SM's, and a block's reserve
     # layer1 at b12, b24, b4, b8; stage 1's 14 and refine2d's 24 convs
     assert len(calls) >= 4 + 14
     # completion: the R50 decoder's stride-32 map, 11 x 38 (H odd, W no
@@ -639,19 +840,39 @@ def test_conv_tiles_fit_every_conv_of_the_main_paths():
     assert any(c[:3] == (4, 352, 1216) for c in calls)
     assert (8, 88, 304, 64, 64, False) in calls
     assert any(ci % conv3x3.CHUNK for _, _, _, ci, _, _ in calls)  # K tails
+    assert any(ci % conv3x3.BF16_CHUNK for _, _, _, ci, _, _ in calls)
     assert any(co == 1 for *_, co, _ in calls)  # the heads: N tails
     for B, H, W, Ci, Co, reflect in calls:
-        t = conv3x3.conv_tiles(B, H, W, Ci, Co, reflect)
+        t = conv3x3.conv_tiles(B, H, W, Ci, Co, reflect, dtype)
+        if not bf16:
+            assert (t.fwd_n, t.dgrad_n, t.wgrad_mw, t.wgrad_splits) == \
+                _conv_tiles_before_bf16(B, H, W, Ci, Co, reflect)
+            assert t.fwd_n == conv3x3.n_tile(B, H, W, Co)
         assert t.fwd_n in conv3x3.N_TILES and t.dgrad_n in conv3x3.N_TILES
         assert t.fwd_n <= max(conv3x3.N_TILES[0], 2 * Co)  # no wider
         assert t.wgrad_mw in (1, 2, 4) and t.wgrad_splits >= 1
+        # the grids cover the outputs: N tiles the output channels (the
+        # dgrad's: Ci), wgrad tiles Co x Ci, the splits every pixel tile
+        assert -(-Co // t.fwd_n) * t.fwd_n >= Co
+        assert -(-Ci // t.dgrad_n) * t.dgrad_n >= Ci
+        co_tiles = -(-Co // (16 * t.wgrad_mw))
+        ci_tiles = -(-Ci // ci_tile[t.wgrad_mw])
+        assert co_tiles * 16 * t.wgrad_mw >= Co
+        assert ci_tiles * ci_tile[t.wgrad_mw] >= Ci
         # the kernel's runs: ceil(n_pix / splits) tiles each, none empty
         n_pix = B * conv3x3.pixel_tiles(H, W, conv3x3.WGRAD_TILE_H)
         per_split = -(-n_pix // t.wgrad_splits)
+        assert per_split * t.wgrad_splits >= n_pix
         assert (t.wgrad_splits - 1) * per_split < n_pix
-        blocks = (-(-Co // (16 * t.wgrad_mw))
-                  * -(-Ci // conv3x3.WGRAD_CI[t.wgrad_mw]) * t.wgrad_splits)
-        assert blocks >= conv3x3.N_SMS, (B, H, W, Ci, Co)
+        assert co_tiles * ci_tiles * t.wgrad_splits >= conv3x3.N_SMS, \
+            (B, H, W, Ci, Co)
+        for kind, n, blocks in (
+                ("fwd", t.fwd_n, 2 if not bf16 or t.fwd_n <= 16 else 1),
+                ("fwd", t.dgrad_n, 2 if not bf16 or t.dgrad_n <= 16 else 1),
+                ("wgrad", t.wgrad_mw, 4 if bf16 else 2)):
+            need = _smem_bytes(kind, bf16, n)
+            assert need <= 232448  # a block's most, opted in
+            assert blocks * (need + block_extra) <= sm_bytes, (kind, n)
 
 
 # ---- the pool and reprojection backward kernels' schedules, modelled ----
@@ -1101,7 +1322,11 @@ def test_profile_files_every_port_kernel_under_port_kernels():
     names = prof.port_kernel_names()
     assert {"conv3x3_fwd_kernel", "conv3x3_wgrad_kernel", "warp_fwd_kernel",
             "warp_bwd_kernel", "reproj_fwd_kernel", "reproj_bwd_kernel",
-            "knn_partial_kernel", "maxpool3x3s2_bwd_kernel"} <= names
+            "knn_partial_kernel", "maxpool3x3s2_bwd_kernel",
+            "conv3x3_fwd_bf16_kernel", "conv3x3_wgrad_bf16_kernel",
+            "pack_weights_bf16_kernel",
+            "reflect_fold_border_bf16_kernel"} <= names
+    assert "__launch_bounds__" not in names
     for name in sorted(names):
         for shown in (f"(anonymous namespace)::{name}(float const*, int)",
                       f"void (anonymous namespace)::{name}<2>(float const*)"):
